@@ -1,0 +1,700 @@
+"""Run orchestrator / region scheduler.
+
+Reference: sv_processor.py ``class runner`` (SURVEY.md §2 #3, §3.1):
+parses the targets BED, prepares per-target reference data, iterates
+targets (the reference forks a multiprocessing pool; the only parallelism
+it has), and writes the aggregate ``output/<analysis_name>_svs.out``.
+
+Differences by design: no gfServer to start (the genome index is an
+in-memory object), reference data is cached as packed .npy artifacts
+(content-addressed by region), and a per-region completion ledger enables
+resume at region granularity (SURVEY.md §5 checkpoint/resume).
+
+Port of breakmer_tpu/runner.py: the serial path only. The batched panel
+path, the sharded genome index and multihost runs are not ported yet
+(setup raises for their knobs); ``Config.device`` picks the torch device
+of the k-mer and SW stages (breakmer_tpu_torch.device).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from breakmer_tpu_torch.align.index import GenomeIndex
+from breakmer_tpu_torch.align.realign import RegionRef
+from breakmer_tpu_torch.call.events import SVEvent
+from breakmer_tpu.config import Config
+from breakmer_tpu.encode import ReadBatch
+from breakmer_tpu.io.bed import TargetRegion, read_targets_bed
+from breakmer_tpu.io.fasta import FastaIndex
+from breakmer_tpu.io.bam import read_alignments
+from breakmer_tpu_torch.pipeline import RegionResult, TargetPipeline
+from breakmer_tpu_torch.report import event_row, write_svs_rows
+from breakmer_tpu.utils.logging import get_logger, setup_logger
+from breakmer_tpu.utils.meter import METER
+from breakmer_tpu.utils.rmask import RepeatMask
+
+log = get_logger("runner")
+
+
+class Runner:
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.targets: Dict[str, TargetRegion] = {}
+        self.fasta: Optional[FastaIndex] = None
+        self.genome: Optional[GenomeIndex] = None
+        self.rmask: Optional[RepeatMask] = None
+        self.results: List[RegionResult] = []
+        self.other_regions: Dict[str, TargetRegion] = {}
+        self.user_filter: Optional[RepeatMask] = None
+        self._sample_records: Optional[list] = None
+        self._record_bins = None  # per-chrom (idx, pos, end) interval arrays
+        self._indexed_reader = None  # cached BamIndexedReader (indexed path)
+        self._native_cols = None   # (cols, ref_names) for .bam native path
+        self._native_cov_bins = None  # per-refid (pos_sorted, end) arrays
+        self._preload_resolved: Optional[bool] = None  # _preload_effective()
+        self._global_disc = None   # run-level DiscordantPairs (lazy)
+        self.total_calls = 0  # rows in the aggregate output (incl. resumed)
+        import threading
+
+        # serializes indexed-BAM seeks when nprocs>1 (shared file handle)
+        self._records_lock = threading.Lock()
+
+    # -- setup (reference: runner.__init__ + start_blat_server) ------------
+    def setup(self) -> None:
+        cfg = self.cfg
+        cfg.validate()
+        setup_logger(cfg.analysis_dir, cfg.log_level)
+        for knob, item in (("batch_regions", 1), ("shard_genome_index", 3),
+                           ("multihost", 4)):
+            if getattr(cfg, knob):
+                raise NotImplementedError(
+                    f"{knob} is not ported to breakmer_tpu_torch yet "
+                    f"(ROADMAP.md Queue 1, item {item})"
+                )
+        from breakmer_tpu_torch.device import resolve
+
+        self.device = resolve(cfg.device)
+        log.info("compute device: %s", self.device)
+        gene_list = None
+        if cfg.gene_list:
+            gene_list = [g.strip() for g in Path(cfg.gene_list).read_text().split()]
+        self.targets = read_targets_bed(cfg.targets_bed_file, gene_list)
+        self.all_target_names = list(self.targets)
+        if str(cfg.reference_fasta).endswith(".2bit"):
+            # UCSC .2bit references accepted directly (migration compat
+            # with the reference's faToTwoBit artifacts)
+            from breakmer_tpu.io.twobit import TwoBitReader
+
+            self.fasta = TwoBitReader(cfg.reference_fasta)
+        else:
+            self.fasta = FastaIndex(cfg.reference_fasta)
+        if cfg.build_genome_index:
+            # gfServer replacement: in-memory whole-genome seed index,
+            # cached as a packed artifact under reference_data_dir (the
+            # formalized .2bit equivalent; SURVEY.md §5)
+            t0 = time.time()
+            cache = None
+            if cfg.reference_data_dir:
+                Path(cfg.reference_data_dir).mkdir(parents=True, exist_ok=True)
+                stem = Path(cfg.reference_fasta).stem
+                cache = (
+                    Path(cfg.reference_data_dir)
+                    / f"{stem}_genome_index_v2_k{cfg.seed_kmer_size}.npz"
+                )
+            if cache is not None and cache.exists():
+                self.genome = GenomeIndex.load(cache)
+                log.info("genome index loaded from %s in %.1fs", cache,
+                         time.time() - t0)
+            else:
+                # generator, not to_dict(): only one chromosome's unpacked
+                # sequence is alive at a time during the build (the index
+                # keeps everything 2-bit packed; genome-scale RAM budget)
+                self.genome = GenomeIndex(
+                    ((n, self.fasta.fetch_codes(n, 0, self.fasta.length(n)))
+                     for n in self.fasta.names),
+                    cfg.seed_kmer_size,
+                )
+                if cache is not None:
+                    self.genome.save(cache)
+                log.info("genome index built in %.1fs", time.time() - t0)
+        if cfg.repeat_mask_file:
+            self.rmask = RepeatMask.from_bed(cfg.repeat_mask_file)
+        if cfg.other_regions_file:
+            self.other_regions = read_targets_bed(cfg.other_regions_file)
+        if cfg.filter_list:
+            # user filter_list: calls with breakpoints in these intervals
+            # are suppressed (reference: sv_caller filter_list)
+            self.user_filter = RepeatMask.from_bed(cfg.filter_list)
+
+    # -- reference data (reference: preset_ref_data / set_ref_data) --------
+    def region_ref(self, target: TargetRegion) -> RegionRef:
+        cfg = self.cfg
+        chrom, start, end = target.span(cfg.region_buffer)
+        cache_dir = Path(cfg.reference_data_dir) if cfg.reference_data_dir else None
+        if cache_dir:
+            cache_dir.mkdir(parents=True, exist_ok=True)
+            key = f"{target.name}_{chrom}_{start}_{end}_codes.npy"
+            fp = cache_dir / key
+            if fp.exists():
+                codes = np.load(fp)
+                return RegionRef.build(chrom, start, codes, cfg.seed_kmer_size)
+        codes = self.fasta.fetch_codes(chrom, start, end)
+        if cache_dir:
+            np.save(cache_dir / key, codes)
+        return RegionRef.build(chrom, start, codes, cfg.seed_kmer_size)
+
+    def preset_ref_data(self) -> None:
+        """Build all region caches up front (reference preset mode,
+        SURVEY.md §3.4)."""
+        for target in self.targets.values():
+            self.region_ref(target)
+
+    # -- ledger (checkpoint/resume, SURVEY.md §5) --------------------------
+    @property
+    def _ledger_path(self) -> Path:
+        return Path(self.cfg.analysis_dir) / "ledger.json"
+
+    @property
+    def _ledger_append_path(self) -> Path:
+        return self._ledger_path.with_suffix(".jsonl")
+
+    def _load_ledger(self) -> Dict[str, dict]:
+        """Snapshot overlaid with the append log (crash-safe resume)."""
+        ledger: Dict[str, dict] = {}
+        if self._ledger_path.exists():
+            ledger = json.loads(self._ledger_path.read_text())
+        ap = self._ledger_append_path
+        if ap.exists():
+            for line in ap.read_text().splitlines():
+                if not line.strip():
+                    continue
+                try:
+                    rec = json.loads(line)
+                except json.JSONDecodeError:
+                    continue  # torn tail line from a crash mid-append
+                ledger[rec["name"]] = rec["entry"]
+        return ledger
+
+    def _append_ledger(self, name: str, entry: dict) -> None:
+        """O(1) per-region checkpoint: one JSON line appended. Rewriting
+        the whole ledger per region was O(panel^2) and measured at 35% of
+        a 100-gene warm run; the consolidated ledger.json is written once
+        at finalize."""
+        self._ledger_path.parent.mkdir(parents=True, exist_ok=True)
+        with open(self._ledger_append_path, "a") as fh:
+            fh.write(json.dumps({"name": name, "entry": entry}) + "\n")
+
+    def _save_ledger(self, ledger: Dict[str, dict]) -> None:
+        self._ledger_path.parent.mkdir(parents=True, exist_ok=True)
+        self._ledger_path.write_text(json.dumps(ledger, indent=1))
+        self._ledger_append_path.unlink(missing_ok=True)
+
+    # -- alignment streaming -----------------------------------------------
+    def _preload_effective(self) -> bool:
+        """Whether this run actually preloads the alignment file.
+        cfg.preload_alignments, overridden to False when the BAM exceeds
+        cfg.preload_max_mb on disk AND a sidecar .bai/.csi exists — a
+        whole-file BGZF inflate of a production-scale BAM (tens of GB
+        compressed, 2-4x that inflated) must never be the default; the
+        indexed reader serves each region at cost independent of file
+        size. Decided once (the decision gates which lazily-built shared
+        structures exist, so it must not flip mid-run)."""
+        if self._preload_resolved is None:
+            cfg = self.cfg
+            use = bool(cfg.preload_alignments)
+            path = str(cfg.sample_bam_file)
+            if use and cfg.preload_max_mb is not None and path.endswith(".bam"):
+                from breakmer_tpu.io.bam import find_index
+
+                size_mb = Path(path).stat().st_size / 2**20
+                if size_mb > cfg.preload_max_mb:
+                    if find_index(path) is not None:
+                        use = False
+                        log.info(
+                            "sample BAM is %.0f MiB on disk (> preload_max_mb"
+                            "=%g) with a sidecar index: using indexed "
+                            "per-region fetch (bounded memory)",
+                            size_mb, cfg.preload_max_mb,
+                        )
+                    else:
+                        log.warning(
+                            "sample BAM is %.0f MiB on disk (> preload_max_mb"
+                            "=%g) but has no .bai/.csi index; preloading "
+                            "whole file — index it to bound memory",
+                            size_mb, cfg.preload_max_mb,
+                        )
+            self._preload_resolved = use
+        return self._preload_resolved
+
+    def _ensure_native_cols(self) -> bool:
+        """One-time native-BAM columnar decode (C++ inflate + decode).
+        Returns True when the columnar path is usable. Called once from
+        the main thread before any worker threads extract (the build is
+        not guarded by a lock; the per-region reads of the shared columns
+        afterwards are read-only and thread-safe)."""
+        cfg = self.cfg
+        path = str(cfg.sample_bam_file)
+        is_bam = path.endswith(".bam")
+        is_sam = path.endswith(".sam")
+        if not (self._preload_effective() and (is_bam or is_sam)):
+            return False
+        from breakmer_tpu import native
+
+        if not native.available():
+            return False
+        if self._native_cols is None:
+            t0 = time.time()
+            if is_bam:
+                from breakmer_tpu.io.bam import BamReader
+
+                with METER.stage("bam_decode"):
+                    reader = BamReader(path)
+                    cols = native.bam_decode_columns(
+                        reader._data, reader._align_off
+                    )
+                if cols is None:
+                    return False
+                self._native_cols = (cols, [n for n, _ in reader.refs])
+            else:
+                # text SAM through the same columnar C++ decode (the
+                # per-line Python parse was ~25% of warm panel time)
+                with METER.stage("bam_decode"):
+                    out = native.sam_decode_columns(Path(path).read_bytes())
+                if out is None:
+                    return False
+                self._native_cols = out
+            log.info(
+                "native %s decode: %d records in %.1fs",
+                "BAM" if is_bam else "SAM",
+                self._native_cols[0].get("n", 0), time.time() - t0,
+            )
+        return True
+
+    def _columnar_extract(self, target: TargetRegion):
+        """Native-BAM columnar extraction (C++ decode once, vectorized
+        numpy classification per region); None when unavailable — the
+        caller falls back to the record path."""
+        cfg = self.cfg
+        if not self._ensure_native_cols():
+            return None
+        from breakmer_tpu_torch.extract import extract_sv_reads_columnar
+
+        cols, ref_names = self._native_cols
+        chrom, start, end = target.span(cfg.region_buffer)
+        with METER.stage("extract_clean"):
+            return extract_sv_reads_columnar(cols, ref_names, (chrom, start, end), cfg)
+
+    def _region_records(self, chrom: int, start: int, end: int):
+        """Records overlapping a region. With preload_alignments (default)
+        the file is parsed ONCE and filtered in memory per region —
+        re-parsing the whole SAM/BAM per target dominated panel runtime
+        (one pass is also what the reference's BAM index achieves). With
+        preload off and a sidecar .bai/.csi, a cached indexed reader serves
+        each region by seeking (whole-genome BAMs: per-region cost is
+        independent of file size)."""
+        cfg = self.cfg
+        if not self._preload_effective():
+            bam = str(cfg.sample_bam_file)
+            from breakmer_tpu.io.bam import BamIndexedReader, find_index
+
+            if bam.endswith(".bam") and find_index(bam) is not None:
+                if self._indexed_reader is None:
+                    self._indexed_reader = BamIndexedReader(bam)
+                return self._indexed_reader.fetch(chrom, start, end)
+            return read_alignments(cfg.sample_bam_file, region=(chrom, start, end))
+        if self._sample_records is None:
+            t0 = time.time()
+            self._sample_records = list(read_alignments(cfg.sample_bam_file))
+            log.info(
+                "loaded %d alignment records in %.1fs",
+                len(self._sample_records), time.time() - t0,
+            )
+        self._ensure_record_bins()
+        entry = self._record_bins.get(chrom)
+        if entry is None:
+            return []
+        idx, pos, eend = entry
+        hi = int(np.searchsorted(pos, end, "left"))
+        cand = idx[:hi][eend[:hi] > start]
+        cand.sort()  # restore file order (the scan's iteration order)
+        return [self._sample_records[i] for i in cand]
+
+    def _all_reads_provider(self, target: TargetRegion):
+        """Zero-arg closure yielding EVERY primary region read (the
+        contig-extension pool, assemble/extend.py). Lazy: the batch is
+        built only when the region actually assembled contigs, and the
+        pipeline drops it immediately after — never held across regions.
+        Thread-safe from nprocs workers: the columnar path reads the
+        shared read-only columns; the record path takes the same lock
+        extraction does around the indexed-reader seek."""
+        cfg = self.cfg
+
+        def provide():
+            from breakmer_tpu_torch.extract import (
+                extract_all_reads,
+                extract_all_reads_columnar,
+            )
+
+            chrom, start, end = target.span(cfg.region_buffer)
+            if self._ensure_native_cols():
+                cols, ref_names = self._native_cols
+                return extract_all_reads_columnar(
+                    cols, ref_names, (chrom, start, end))
+            lock = getattr(self, "_records_lock", None)
+            if lock is not None and not self._preload_effective():
+                with lock:
+                    records = list(self._region_records(chrom, start, end))
+            else:
+                records = self._region_records(chrom, start, end)
+            return extract_all_reads(records, (chrom, start, end))
+
+        return provide
+
+    def _ensure_record_bins(self) -> None:
+        """One-time per-chrom interval arrays over the preloaded records:
+        the per-region linear scan with python record_overlaps calls
+        dominated warm panel time at O(targets x records). Effective end
+        pos+1 for unmapped records reproduces record_overlaps exactly
+        (start <= pos < end  <=>  pos+1 > start and pos < end)."""
+        if self._record_bins is not None or self._sample_records is None:
+            return
+        recs = self._sample_records
+        by_chrom: Dict[str, list] = {}
+        for i, r in enumerate(recs):
+            by_chrom.setdefault(r.rname, []).append(i)
+        bins = {}
+        for name, idx_list in by_chrom.items():
+            idx = np.asarray(idx_list, dtype=np.int64)
+            pos = np.asarray([recs[i].pos for i in idx_list], dtype=np.int64)
+            eend = np.asarray(
+                [
+                    recs[i].pos + 1 if recs[i].is_unmapped else recs[i].reference_end()
+                    for i in idx_list
+                ],
+                dtype=np.int64,
+            )
+            order = np.argsort(pos, kind="stable")
+            bins[name] = (idx[order], pos[order], eend[order])
+        self._record_bins = bins
+
+    def _ensure_native_cov_bins(self) -> dict:
+        """One-time per-refid sorted (pos, end) arrays over the native
+        columns restricted to primary mapped records — mirrors
+        ``_ensure_record_bins`` so ``_global_coverage_at`` on the columnar
+        path stops being a full-table boolean scan per breakpoint query
+        (VERDICT r3 weak #2: ~tens of MB streamed per trl partner-locus
+        depth query at multi-million-record ingest scale)."""
+        if self._native_cov_bins is None:
+            cols, _ = self._native_cols
+            bins = {}
+            keep = (cols["flag"] & (0x4 | 0x100 | 0x800)) == 0
+            refid = cols["refid"][keep]
+            rpos = cols["pos"][keep].astype(np.int64, copy=False)
+            eend = rpos + cols["ref_span"][keep]
+            for rid in np.unique(refid):
+                sel = refid == rid
+                p, e = rpos[sel], eend[sel]
+                order = np.argsort(p, kind="stable")
+                p, e = p[order], e[order]
+                # max ref_span bounds how far left an overlapping record
+                # can start: query window becomes (q - max_span, q]
+                span_max = int((e - p).max()) if len(p) else 0
+                bins[int(rid)] = (p, e, span_max)
+            self._native_cov_bins = bins
+        return self._native_cov_bins
+
+    # -- genome-wide depth for off-region breakpoints -----------------------
+    def _global_coverage_at(self, chrom: str, pos: int) -> int:
+        """Depth at any genomic position from the preloaded alignments —
+        serves breakpoints outside the region window (e.g. translocation
+        partner loci), which the region coverage array cannot see.
+        Served from the per-chrom interval bins (candidates only), not a
+        scan of every record (VERDICT r1 weak #5)."""
+        if self._native_cols is not None:
+            cols, ref_names = self._native_cols
+            if chrom not in ref_names or not cols.get("n"):
+                return 0
+            rid = ref_names.index(chrom)
+            entry = self._ensure_native_cov_bins().get(rid)
+            if entry is None:
+                return 0
+            rpos, eend, span_max = entry
+            hi = int(np.searchsorted(rpos, pos, "right"))
+            lo = int(np.searchsorted(rpos, pos - span_max, "right"))
+            return int((eend[lo:hi] > pos).sum())
+        if self._sample_records is not None:
+            self._ensure_record_bins()
+            entry = self._record_bins.get(chrom)
+            if entry is None:
+                return 0
+            idx, rpos, eend = entry
+            hi = int(np.searchsorted(rpos, pos, "right"))
+            cand = idx[:hi][eend[:hi] > pos]
+            depth = 0
+            for i in cand:
+                r = self._sample_records[i]
+                if not (r.is_unmapped or r.is_secondary or r.is_supplementary):
+                    depth += 1
+            return depth
+        if self._indexed_reader is not None:
+            # bounded-ingest mode: one indexed point fetch (same counting
+            # rule as the columnar path: primary mapped records only)
+            with self._records_lock:
+                return sum(
+                    1 for r in self._indexed_reader.fetch(chrom, pos, pos + 1)
+                    if not (r.is_unmapped or r.is_secondary
+                            or r.is_supplementary)
+                )
+        return 0
+
+    def _global_disc_pairs(self):
+        """Run-level discordant-pair map (cfg.global_disc_support), built
+        once per run: native-columnar when the C++ decode is loaded,
+        otherwise one pass over the (preloaded or streamed) records.
+        Returns a DiscordantPairs with one qname-deduped entry per pair."""
+        if self._global_disc is not None:
+            return self._global_disc
+        cfg = self.cfg
+        t0 = time.time()
+        if self._ensure_native_cols():
+            from breakmer_tpu_torch.extract import global_discordant_pairs_columnar
+
+            cols, ref_names = self._native_cols
+            self._global_disc = global_discordant_pairs_columnar(
+                cols, ref_names, cfg
+            )
+        else:
+            from breakmer_tpu_torch.extract import global_discordant_pairs
+
+            if self._preload_effective():
+                if self._sample_records is None:
+                    self._sample_records = list(
+                        read_alignments(cfg.sample_bam_file)
+                    )
+                records = self._sample_records
+            else:
+                records = read_alignments(cfg.sample_bam_file)
+            self._global_disc = global_discordant_pairs(records, cfg)
+        log.info(
+            "global discordant map: %d pairs in %.1fs",
+            len(self._global_disc), time.time() - t0,
+        )
+        return self._global_disc
+
+    # -- per-target intermediates (reference keeps these as the de-facto
+    # debugging fixtures: sv fastq, kmer dumps, contig fastas — SURVEY.md §4)
+    def _write_intermediates(self, name: str, pipe: TargetPipeline, result) -> None:
+        from breakmer_tpu.io.fastq import write_fastq
+        from breakmer_tpu_torch.ops.kmer import kmer_to_str
+
+        base = Path(self.cfg.analysis_dir) / "targets" / name
+        (base / "data").mkdir(parents=True, exist_ok=True)
+        (base / "kmers").mkdir(exist_ok=True)
+        (base / "contigs").mkdir(exist_ok=True)
+        if pipe.extract_result is not None and len(pipe.extract_result.batch):
+            write_fastq(base / "data" / "sv_reads.fastq", pipe.extract_result.batch)
+        if pipe.clean_batch is not None and len(pipe.clean_batch):
+            write_fastq(base / "data" / "clean_reads.fastq", pipe.clean_batch)
+        if pipe.kmer_values is not None and len(pipe.kmer_values):
+            k = self.cfg.kmer_size
+            with open(base / "kmers" / "sample_kmers.out", "w") as fh:
+                for v, c in zip(pipe.kmer_values, pipe.kmer_counts):
+                    fh.write(f"{kmer_to_str(int(v), k)}\t{int(c)}\n")
+        if result.contigs:
+            from breakmer_tpu.io.fasta import write_fasta
+
+            write_fasta(
+                base / "contigs" / "contigs.fa",
+                {c.id: c.seq for c in result.contigs},
+            )
+
+    # -- normal reads for kmer subtraction ---------------------------------
+    def _normal_batch(self, target: TargetRegion) -> Optional[ReadBatch]:
+        cfg = self.cfg
+        if not cfg.normal_bam_file:
+            return None
+        chrom, start, end = target.span(cfg.region_buffer)
+        seqs, names = [], []
+        for rec in read_alignments(cfg.normal_bam_file, region=(chrom, start, end)):
+            if rec.seq and rec.seq != "*":
+                seqs.append(rec.seq)
+                names.append(rec.qname)
+        return ReadBatch.from_seqs(seqs, names=names) if seqs else None
+
+    # -- main loop (reference: runner.run) ---------------------------------
+    def run(self, resume: bool = False) -> List[SVEvent]:
+        cfg = self.cfg
+        METER.reset()  # per-run stage/GCUPS counters (-> metrics.json)
+        if not self.targets:
+            self.setup()
+        return self._run_serial(resume)
+
+    def _run_serial(self, resume: bool) -> List[SVEvent]:
+        cfg = self.cfg
+        ledger = self._load_ledger() if resume else {}
+        all_events: List[SVEvent] = []
+        t_start = time.time()
+        for name, target in self.targets.items():
+            if name in ledger:
+                log.info(
+                    "target %s: resumed from ledger (%d calls)",
+                    name, len(ledger[name].get("rows", [])),
+                )
+                continue
+            t0 = time.time()
+            region_ref = self.region_ref(target)
+            chrom, start, end = target.span(cfg.region_buffer)
+            pipe = TargetPipeline(
+                cfg,
+                target,
+                region_ref,
+                genome=self.genome,
+                rmask=self.rmask,
+                normal_batch=self._normal_batch(target),
+                device=self.device,
+            )
+            pipe.global_coverage_at = self._global_coverage_at
+            pipe.user_filter = self.user_filter
+            pipe.all_reads_provider = self._all_reads_provider(target)
+            if cfg.global_disc_support:
+                pipe.disc_override = self._global_disc_pairs()
+            ext = self._columnar_extract(target)
+            if ext is not None:
+                result = pipe.run(extract_result=ext)
+            else:
+                result = pipe.run(self._region_records(chrom, start, end))
+            self._annotate_other_regions(result.events)
+            if cfg.keep_intermediates:
+                self._write_intermediates(name, pipe, result)
+            self.results.append(result)
+            all_events.extend(result.events)
+            log.info(
+                "target %s: %d records, %d sv reads, %d kmers, %d contigs, "
+                "%d calls (%d pre-filter) in %.2fs%s",
+                name, result.n_records, result.n_sv_reads,
+                result.n_sample_kmers, len(result.contigs),
+                len(result.events), len(result.all_events),
+                time.time() - t0,
+                f" ERROR={result.error}" if result.error else "",
+            )
+            ledger[name] = {
+                "rows": [event_row(ev) for ev in result.events],
+                "vcf": self._vcf_records(name, result.events),
+                "error": result.error,
+                "elapsed_s": round(time.time() - t0, 3),
+                "stats": _region_stats(result),
+            }
+            self._append_ledger(name, ledger[name])
+        return self._finalize(ledger, all_events, t_start)
+
+    def _vcf_records(self, region: str, events: List[SVEvent]) -> List[dict]:
+        """VCF record dicts for a region's calls, stored in the ledger so
+        resumed regions keep their VCF rows (breakmer_tpu/vcf.py)."""
+        from breakmer_tpu_torch.vcf import event_vcf_records
+
+        ref_base_at = None
+        if self.fasta is not None:
+            ref_base_at = lambda c, p: self.fasta.fetch(c, p - 1, p)
+        recs: List[dict] = []
+        for i, ev in enumerate(events, 1):
+            rid = f"{self.cfg.analysis_name}_{region}_{i}"
+            recs.extend(event_vcf_records(ev, rid, ref_base_at))
+        return recs
+
+    def _annotate_other_regions(self, events: List[SVEvent]) -> None:
+        """Annotate events whose breakpoints fall in ``other_regions_file``
+        entries (reference: other-regions handling in runner/target —
+        SURVEY.md §2 #16): the partner locus name joins the genes column,
+        e.g. a translocation into an off-target partner gene."""
+        if not self.other_regions:
+            return
+        for ev in events:
+            extra = []
+            for chrom, start, _end in ev.breakpoints:
+                for name, reg in self.other_regions.items():
+                    if (
+                        name != ev.genes
+                        and name not in extra
+                        and reg.chrom == chrom
+                        and reg.start <= start < reg.end
+                    ):
+                        extra.append(name)
+            if extra:
+                ev.genes = ",".join([ev.genes] + extra)
+
+    def _finalize(self, ledger, all_events, t_start) -> List[SVEvent]:
+        cfg = self.cfg
+        self._save_ledger(ledger)
+        # aggregate from the ledger so resumed targets keep their calls
+        order = list(self.targets)
+        all_rows = [
+            row for name in order for row in ledger.get(name, {}).get("rows", [])
+        ]
+        out = Path(cfg.analysis_dir) / "output" / f"{cfg.analysis_name}_svs.out"
+        write_svs_rows(out, all_rows)
+        self.total_calls = len(all_rows)
+        from breakmer_tpu_torch.vcf import write_vcf
+
+        vcf_recs = [
+            rec for name in order for rec in ledger.get(name, {}).get("vcf", [])
+        ]
+        contigs = (
+            [(n, self.fasta.length(n)) for n in self.fasta.names]
+            if self.fasta is not None else []
+        )
+        write_vcf(
+            Path(cfg.analysis_dir) / "output" / f"{cfg.analysis_name}.vcf",
+            vcf_recs, contigs=contigs, sample=cfg.analysis_name,
+            reference=cfg.reference_fasta,
+        )
+        # structured per-stage counters (SURVEY.md §5 observability — the
+        # reference exposes these only as log prose)
+        metrics = {
+            "targets": len(order),
+            "calls": len(all_rows),
+            "elapsed_s": round(time.time() - t_start, 3),
+            # per-stage wall seconds + run-level SW GCUPS (SURVEY.md §5:
+            # the reference logs only elapsed-time prose; GCUPS is the
+            # BASELINE.json required kernel metric)
+            **METER.snapshot(),
+            "errors": {
+                n: ledger[n]["error"]
+                for n in order
+                if ledger.get(n, {}).get("error")
+            },
+            "regions": {
+                n: {**ledger[n].get("stats", {}),
+                    "calls": len(ledger[n].get("rows", [])),
+                    "elapsed_s": ledger[n].get("elapsed_s")}
+                for n in order if n in ledger
+            },
+        }
+        (Path(cfg.analysis_dir) / "metrics.json").write_text(
+            json.dumps(metrics, indent=1)
+        )
+        log.info(
+            "run complete: %d targets, %d calls (%d new) in %.1fs -> %s",
+            len(self.targets), len(all_rows), len(all_events),
+            time.time() - t_start, out,
+        )
+        return all_events
+
+
+def _region_stats(result: RegionResult) -> dict:
+    return {
+        "records": result.n_records,
+        "sv_reads": result.n_sv_reads,
+        "clean_reads": result.n_clean_reads,
+        "sample_kmers": result.n_sample_kmers,
+        "contigs": len(result.contigs),
+        "prefilter_events": len(result.all_events),
+        "filter_reasons": [
+            ev.filter_reason for ev in result.all_events if ev.filter_reason
+        ],
+    }
