@@ -12,6 +12,10 @@ that reach JAX through a package ``__init__``.
 Layer map:
   ops/       k-mer engine (torch ops), Smith-Waterman (plain torch version
              and the hand-written CUDA kernel in csrc/)
+  parallel/  the fused region step (k-mer subtraction + SW), one device
+  bench      the benchmark: SW GCUPS, region-step regions/s, on the card
+  tools/     the TPU probes ported to the card, each with a CUDA kernel
+  timing     CUDA-event and profiler timing, the card's name and power
   assemble/  greedy k-mer-extension contig assembly (host)
   align/     seed index + seed-and-extend realignment + host traceback
   call/      breakpoint classification, support counting, filter stack

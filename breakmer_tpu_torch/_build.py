@@ -1,8 +1,9 @@
 """Build of the port's CUDA kernels.
 
 ``library()`` compiles every ``csrc/*.cu`` with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, on first
-use, and loads it with ctypes. The library lives in
+(``sm_90a``), one ``nvcc`` a source, all started together, links the
+objects into one shared library with a plain C interface, on first use,
+and loads it with ctypes. The library lives in
 ``build/breakmer_tpu_torch/<hash>/`` at the repository root, named by a
 hash of the sources and flags, so an edited source builds anew and an
 unchanged one is reused. No ``nvcc`` or a failed build raises: there is
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parent
 BUILD_ROOT = _PKG.parent / "build" / "breakmer_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib: Optional[ctypes.CDLL] = None
@@ -59,23 +60,34 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns
-    its path. The compiler's output (with ptxas register and shared
-    memory use) is kept beside it in ``build.log``."""
+    its path. Each source compiles in its own ``nvcc`` process, all at
+    once; the compilers' output (with ptxas register and shared memory
+    use) is kept beside the library in ``build.log``."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.parent / f"{src.stem}.{tag}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+    tmp = out.with_name(f"{out.name}.{tag}")
+    if all(rc == 0 for _, _, rc in logs):
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        logs.append((cmd, proc.stdout, proc.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    text = "".join(" ".join(c) + "\n" + o for c, o, _ in logs)
+    (out.parent / "build.log").write_text(text)
+    if any(rc != 0 for _, _, rc in logs) or not tmp.exists():
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, out)
     return out
 
@@ -92,5 +104,28 @@ def library() -> ctypes.CDLL:
         lib.sw_wavefront_smem_bytes.argtypes = [i32, i32]
         lib.sw_wavefront_error_string.restype = ctypes.c_char_p
         lib.sw_wavefront_error_string.argtypes = [i32]
+        lib.sw_ceiling_probe_launch.restype = i32
+        lib.sw_ceiling_probe_launch.argtypes = [vp, vp] + [i32] * 6 + [vp, vp]
+        lib.sw_ceiling_probe_smem_bytes.restype = ctypes.c_longlong
+        lib.sw_ceiling_probe_smem_bytes.argtypes = [i32]
+        lib.probe_i16_launch.restype = i32
+        lib.probe_i16_launch.argtypes = [i32, vp, vp, vp, vp, i32, i32, vp]
+        lib.probe_cummax_launch.restype = i32
+        lib.probe_cummax_launch.argtypes = [vp, vp, i32, i32, vp]
         _lib = lib
     return _lib
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a launch entry point returned a CUDA error (a launch the
+    runtime refused never runs, and a later synchronize does not say so)."""
+    if err != 0:
+        msg = library().sw_wavefront_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg}")
+
+
+def stream_of(x) -> int:
+    """The handle of PyTorch's current stream on tensor ``x``'s card."""
+    import torch
+
+    return torch.cuda.current_stream(x.device).cuda_stream

@@ -4,7 +4,7 @@ Reference: breakmer.py ``__main__`` (SURVEY.md §2 #1): optparse CLI taking
 a config file plus option overrides; modes: full run and reference-data
 preset (SURVEY.md §3.4). Usage:
 
-    python -m breakmer_tpu_torch.cli run <config> [--nprocs N] [--genes A,B] ...
+    python -m breakmer_tpu_torch.cli run <config> [--nprocs N] [--genes A,B] [--profile] ...
     python -m breakmer_tpu_torch.cli preset <config>
     python -m breakmer_tpu_torch.cli version
     python -m breakmer_tpu_torch.cli check
@@ -49,6 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
     add_common(run_p)
     run_p.add_argument("--resume", action="store_true",
                        help="resume from the per-region completion ledger")
+    run_p.add_argument("--profile", action="store_true",
+                       help="capture a torch.profiler trace to <analysis_dir>/trace")
 
     preset_p = sub.add_parser(
         "preset", help="pre-build reference data caches (reference preset mode)"
@@ -67,7 +69,7 @@ def load_config(args: argparse.Namespace) -> Config:
     overrides = {
         k: v
         for k, v in vars(args).items()
-        if k not in ("command", "config", "resume") and v is not None
+        if k not in ("command", "config", "resume", "profile") and v is not None
     }
     return Config.from_file(args.config, **overrides)
 
@@ -120,6 +122,30 @@ def run_check() -> int:
     return 1 if failures else 0
 
 
+def run_profiled(runner: Runner, cfg: Config, resume: bool = False) -> None:
+    """``runner.run`` under ``torch.profiler``: host activity, plus the
+    card's kernels when the run's device is a card. The Chrome trace goes
+    to ``<analysis_dir>/trace/trace.json`` (the JAX package writes its
+    ``jax.profiler`` trace to the same directory)."""
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from breakmer_tpu_torch.device import resolve
+
+    activities = [ProfilerActivity.CPU]
+    if resolve(cfg.device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    out = Path(cfg.analysis_dir) / "trace"
+    with profile(activities=activities) as prof:
+        runner.run(resume=resume)
+        if ProfilerActivity.CUDA in activities:
+            torch.cuda.synchronize()
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "trace.json"))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "version":
@@ -134,7 +160,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         runner.preset_ref_data()
         print(f"preset complete: {len(runner.targets)} targets cached")
         return 0
-    runner.run(resume=getattr(args, "resume", False))
+    if getattr(args, "profile", False):
+        run_profiled(runner, cfg, resume=getattr(args, "resume", False))
+    else:
+        runner.run(resume=getattr(args, "resume", False))
     print(f"{runner.total_calls} SV calls written to "
           f"{cfg.analysis_dir}/output/{cfg.analysis_name}_svs.out")
     return 0

@@ -73,18 +73,13 @@ def sw_score_cuda(
     if lib.sw_wavefront_smem_bytes(Lq, 0) + _STATIC_SMEM > optin:
         scratch = torch.empty(B * 6 * Lq, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.sw_wavefront_launch(
             q.data_ptr(), t.data_ptr(), B, Lq, Lt,
             params.match, params.mismatch, params.gap_open, params.gap_extend,
             int(no_n), _threads(Lq, Lt),
             scratch.data_ptr() if scratch is not None else None,
-            score.data_ptr(), q_end.data_ptr(), t_end.data_ptr(), stream,
+            score.data_ptr(), q_end.data_ptr(), t_end.data_ptr(), _build.stream_of(q),
         )
-    if err != 0:
-        raise RuntimeError(
-            f"sw_wavefront launch failed (B={B}, Lq={Lq}, Lt={Lt}): "
-            f"{lib.sw_wavefront_error_string(err).decode()}"
-        )
+    _build.check_launch(err, f"sw_wavefront (B={B}, Lq={Lq}, Lt={Lt})")
     LAUNCHES += 1
     return score, q_end, t_end

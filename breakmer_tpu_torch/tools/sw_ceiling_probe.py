@@ -1,0 +1,160 @@
+"""What bounds the SW kernel on the card: the wavefront loop stripped to
+its per-step exchange, beside the production kernel.
+
+Port of ``tools/sw_ceiling_probe.py``. ``stripped`` runs the probe's
+loop (four int32 state vectors a row; per step three lane rolls and a
+max, ``rolls3``, or the rolls replaced by elementwise maxes, ``rolls0``)
+as the hand-written kernel ``csrc/sw_ceiling_probe.cu`` on a CUDA tensor
+and as ``stripped_plain`` on a CPU tensor. ``main`` times both forms and
+the production kernel (``sw_score_cuda(..., no_n=True)``) at the bench
+shape 512 x (256 x 512) and prints one JSON line:
+
+    python -m breakmer_tpu_torch.tools.sw_ceiling_probe
+
+``roll_bound_fraction`` = rolls3 / full: the share of the SW kernel's
+time that its per-diagonal exchange (shared-memory round trip and
+barrier a step) sets. See the note in the .cu for what rolls0 keeps.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+import numpy as np
+import torch
+
+B, LQ, LT = 512, 256, 512
+U = 8  # the TPU loop's unroll; the default step count is a multiple of it
+
+# kernel launches made by stripped (one per call on a CUDA tensor)
+LAUNCHES = 0
+
+_MAX_THREADS = 256
+
+
+def default_steps(Lq: int, Lt: int) -> int:
+    """The probe's step count: one per anti-diagonal, rounded up to U."""
+    return -(-(Lq + Lt - 1) // U) * U
+
+
+def stripped_plain(q: torch.Tensor, t: torch.Tensor, do_rolls: bool,
+                   steps: Optional[int] = None) -> torch.Tensor:
+    """The probe's loop as torch ops: q [B, Lq] and t [B, Lt >= Lq] int8
+    -> [B, Lq] int32. At the default step count (> Lq) every lane of a
+    row ends at the row's maximum; ``steps`` stops earlier, where the
+    roll direction and the wrap at lane 0 still show."""
+    Lq = q.shape[1]
+    steps = default_steps(Lq, t.shape[1]) if steps is None else steps
+    hd1 = q.to(torch.int32)
+    hd2 = torch.zeros_like(hd1)
+    fd1 = torch.zeros_like(hd1)
+    tj = t[:, :Lq].to(torch.int32)
+    for _ in range(steps):
+        if do_rolls:
+            a, b, c = (torch.roll(x, 1, 1) for x in (hd2, fd1, tj))
+        else:
+            a, b, c = (torch.clamp_min(x, v) for x, v in ((hd2, 1), (fd1, 2), (tj, 3)))
+        h = torch.maximum(torch.maximum(a, b), torch.maximum(c, hd1))
+        hd2, hd1, fd1, tj = hd1, h, b, c
+    return hd1
+
+
+def stripped(q: torch.Tensor, t: torch.Tensor, do_rolls: bool,
+             steps: Optional[int] = None) -> torch.Tensor:
+    """``stripped_plain``'s result; on a CUDA tensor from the kernel (it
+    launches or raises), on a CPU tensor from the plain version."""
+    global LAUNCHES
+    if q.device.type == "cpu" and t.device.type == "cpu":
+        return stripped_plain(q, t, do_rolls, steps)
+    from breakmer_tpu_torch import _build
+
+    if q.device.type != "cuda" or t.device != q.device:
+        raise ValueError(f"stripped: q on {q.device}, t on {t.device}; "
+                         "both must be on one CUDA device")
+    if q.dtype != torch.int8 or t.dtype != torch.int8:
+        raise TypeError(f"stripped: int8 codes required, got {q.dtype}, {t.dtype}")
+    if q.dim() != 2 or t.dim() != 2 or q.shape[0] != t.shape[0] or t.shape[1] < q.shape[1]:
+        raise ValueError(f"stripped: shapes {tuple(q.shape)}, {tuple(t.shape)}")
+    Bq, Lq = q.shape
+    Lt = t.shape[1]
+    steps = default_steps(Lq, Lt) if steps is None else int(steps)
+    if steps < 0:
+        raise ValueError(f"stripped: steps={steps}")
+    q, t = q.contiguous(), t.contiguous()
+    out = torch.empty((Bq, Lq), dtype=torch.int32, device=q.device)
+    if Bq == 0 or Lq == 0:
+        return out
+    lib = _build.library()
+    optin = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
+    if lib.sw_ceiling_probe_smem_bytes(Lq) > optin:
+        raise ValueError(f"stripped: Lq={Lq} needs more shared memory than a block has")
+    threads = min(_MAX_THREADS, -(-Lq // 32) * 32)
+    with torch.cuda.device(q.device):
+        err = lib.sw_ceiling_probe_launch(
+            q.data_ptr(), t.data_ptr(), Bq, Lq, Lt, steps, int(bool(do_rolls)),
+            threads, out.data_ptr(), _build.stream_of(q))
+    _build.check_launch(err, f"sw_ceiling_probe (B={Bq}, Lq={Lq}, steps={steps})")
+    LAUNCHES += 1
+    return out
+
+
+def inputs(device) -> tuple:
+    """The probe's inputs (seed 0): q [B, LQ], t [B, LT] int8 codes 0..3."""
+    rng = np.random.default_rng(0)
+    q = rng.integers(0, 4, (B, LQ), dtype=np.int8)
+    t = rng.integers(0, 4, (B, LT), dtype=np.int8)
+    return torch.from_numpy(q).to(device), torch.from_numpy(t).to(device)
+
+
+def measure(device) -> dict:
+    """The probe's numbers on the card (the caller has checked the
+    kernel against the plain version)."""
+    from breakmer_tpu_torch.ops.sw_cuda import sw_score_cuda
+    from breakmer_tpu_torch.timing import card_line, cuda_ms
+
+    q, t = inputs(device)
+    cells = B * LQ * LT
+    t3 = cuda_ms(lambda: stripped(q, t, True)) / 1e3
+    t0 = cuda_ms(lambda: stripped(q, t, False)) / 1e3
+    tf = cuda_ms(lambda: sw_score_cuda(q, t, no_n=True)) / 1e3
+    return {
+        "metric": "sw_ceiling_probe",
+        "shape": [B, LQ, LT],
+        "steps": default_steps(LQ, LT),
+        "rolls3_s": t3,
+        "rolls0_s": t0,
+        "full_s": tf,
+        "rolls3_gcups_equiv": cells / t3 / 1e9,
+        "rolls0_gcups_equiv": cells / t0 / 1e9,
+        "full_gcups": cells / tf / 1e9,
+        "roll_bound_fraction": t3 / tf,
+        "card": card_line(),
+    }
+
+
+def check(device, steps_list=(1, 7, 255, None)) -> None:
+    """Kernel against the plain version on the card, both forms, at each
+    step count (the short ones show the roll direction and the wrap at
+    lane 0 before the output saturates); raises on a difference."""
+    q, t = inputs(device)
+    for do_rolls in (True, False):
+        for steps in steps_list:
+            want = stripped_plain(q, t, do_rolls, steps)
+            got = stripped(q, t, do_rolls, steps)
+            err = int((want - got).abs().max())
+            if err:
+                raise RuntimeError(f"sw_ceiling_probe kernel != plain "
+                                   f"(rolls={do_rolls}, steps={steps}): max err {err}")
+
+
+def main() -> None:
+    from breakmer_tpu_torch.device import resolve
+
+    device = resolve("cuda")
+    check(device)
+    print(json.dumps(measure(device)))
+
+
+if __name__ == "__main__":
+    main()

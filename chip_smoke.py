@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line; each
+phase's wall time is printed):
   1. environment: torch, CUDA, the card's name and power limit;
-  2. build the CUDA kernels from csrc/ (timed);
+  2. build the CUDA kernels from csrc/ (one nvcc a source, in parallel);
   3. the SW kernel against the plain torch version on the card, bit-exact
      at the shapes realign produces, with no_n off and on, ~1% N and
      custom scoring; median of 5 CUDA-event timings of each;
@@ -16,7 +17,16 @@ Phases (any failure exits non-zero and prints no result line):
   6. the slice at panel scale: a 100-gene errored panel with a matched
      normal, on the card and then on the CPU; svs.out and the VCF must be
      byte-identical, no region may fail, and every SW batch of the card
-     run must have launched the kernel.
+     run must have launched the kernel;
+  7. the probe kernels against their plain versions on the card, exact:
+     the stripped SW loop in both forms at steps 1, 7, 255 and the
+     default, every int16 op of both int16 probes, the running max;
+  8. the region step on the card against the CPU, exact, at the bench's
+     shape;
+  9. the measurement path, as a user runs it: python -m
+     breakmer_tpu_torch.bench, then the ceiling probe and the three
+     probes of breakmer_tpu_torch.tools; each of their kernels must have
+     launched.
 The last two lines are the kernel table and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX.
@@ -26,8 +36,6 @@ from __future__ import annotations
 
 import json
 import shutil
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -52,30 +60,6 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median of ``reps`` CUDA-event timings of fn() (after one warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def sw_inputs(rng, B, Lq, Lt, n_rate=0.0):
     """Random codes with exact copies of the query planted in every third
     target and a ragged trailing pad; ``n_rate`` adds mid-sequence N."""
@@ -98,6 +82,7 @@ def sw_inputs(rng, B, Lq, Lt, n_rate=0.0):
 def phase_sw(dev, card):
     from breakmer_tpu_torch.ops import sw_cuda
     from breakmer_tpu_torch.ops.sw import SWParams, sw_score
+    from breakmer_tpu_torch.timing import cuda_ms
 
     rng = np.random.default_rng(2024)
     max_err = 0
@@ -254,11 +239,140 @@ def phase_slice_scale(card):
     return launches
 
 
+def phase_probes(dev, card):
+    """Each probe kernel against its plain version at the probes' shapes:
+    (kernel rows for the table, keyed by kernel name)."""
+    from breakmer_tpu_torch.timing import cuda_ms
+    from breakmer_tpu_torch.tools import probe_mosaic_cummax as cm
+    from breakmer_tpu_torch.tools import probe_swar_i16 as i16
+    from breakmer_tpu_torch.tools import probe_swar_i16b as i16b
+    from breakmer_tpu_torch.tools import sw_ceiling_probe as ceil
+
+    rows = {}
+    ceil.check(dev)  # raises on any difference
+    q, t = ceil.inputs(dev)
+    rows["sw_ceiling_probe"] = dict(
+        max_abs_err=0, shape=[ceil.B, ceil.LQ, ceil.LT],
+        ms=cuda_ms(lambda: ceil.stripped(q, t, True)),
+        plain_ms=cuda_ms(lambda: ceil.stripped_plain(q, t, True)))
+    print(f"  ceiling probe: kernel == plain, both forms, steps 1/7/255/"
+          f"{ceil.default_steps(ceil.LQ, ceil.LT)}; rolls3 kernel "
+          f"{rows['sw_ceiling_probe']['ms']:.4f} ms, plain "
+          f"{rows['sw_ceiling_probe']['plain_ms']:.2f} ms [{card}]", flush=True)
+    for name, mod in (("probe_i16", i16), ("probe_i16b", i16b)):
+        ops = mod.run_ops(mod.OPS, mod.run_op, mod.inputs(), dev)
+        bad = [r["name"] for r in ops if not r["exact"]]
+        check(not bad, f"{name}: kernel != plain for {bad}")
+        mini = next(r for r in ops if r["name"].startswith("fused mini"))
+        rows[name] = dict(max_abs_err=max(r["max_abs_err"] for r in ops),
+                          shape=list(i16.SHAPE), op=mini["name"],
+                          ms=mini["us"] / 1e3, plain_ms=mini["plain_us"] / 1e3,
+                          device_ms=mini["device_us"] / 1e3,
+                          plain_device_ms=mini["plain_device_us"] / 1e3)
+        for r in ops:
+            print(f"  {name} {r['name']:32s} exact  kernel {r['us']:.2f} us "
+                  f"({r['device_us']:.2f} device)  plain {r['plain_us']:.2f} us "
+                  f"({r['plain_device_us']:.2f} device)", flush=True)
+    r = cm.measure(dev)
+    check(r["exact"], "cummax kernel != plain")
+    rows["probe_cummax"] = dict(max_abs_err=r["max_abs_err"], shape=list(cm.SHAPE),
+                                ms=r["us"] / 1e3, plain_ms=r["plain_us"] / 1e3,
+                                device_ms=r["device_us"] / 1e3,
+                                plain_device_ms=r["plain_device_us"] / 1e3)
+    print(f"  cummax {cm.SHAPE}: exact; kernel {r['us']:.2f} us "
+          f"({r['device_us']:.2f} device), plain {r['plain_us']:.2f} us "
+          f"({r['plain_device_us']:.2f} device) [{card}]", flush=True)
+    torch.cuda.synchronize()
+    return rows
+
+
+def tiled_region_inputs(G, R, L, LREF, GB, GLQ, GLT, seed=3):
+    """Region-step inputs whose reads tile a haplotype (about 8x at the
+    bench's shape) that shares only its first half with the reference,
+    so many sample-only k-mers pass min_count; SW pairs are random."""
+    rng = np.random.default_rng(seed)
+    hap = rng.integers(0, 4, (G, LREF)).astype(np.int8)
+    refs = hap.copy()
+    refs[:, LREF // 2:] = rng.integers(0, 4, (G, LREF - LREF // 2))
+    starts = rng.integers(0, LREF - L + 1, (G, R))
+    reads = hap[np.arange(G)[:, None, None], starts[:, :, None] + np.arange(L)]
+    return (reads, np.full((G, R), L, np.int32), refs, np.full(G, LREF, np.int32),
+            rng.integers(0, 4, (G, GB, GLQ)).astype(np.int8),
+            rng.integers(0, 4, (G, GB, GLT)).astype(np.int8))
+
+
+def phase_region_step(dev, card):
+    """The region step on the card against the CPU at the bench's shape,
+    on the bench's inputs and on tiled reads."""
+    from breakmer_tpu_torch import bench
+    from breakmer_tpu_torch.parallel.step import make_region_step, to_numpy
+
+    step = make_region_step(mesh=None, k=bench.K)
+    tiled = tiled_region_inputs(bench.G, bench.R, bench.L, bench.LREF, bench.GB,
+                                bench.GLQ, bench.GLT)
+    for label, on in (("bench inputs", bench.region_step_inputs),
+                      ("tiled reads", lambda d: tuple(torch.from_numpy(a).to(d)
+                                                      for a in tiled))):
+        got = to_numpy(step(*on(dev)))
+        torch.cuda.synchronize()
+        want = to_numpy(step(*on("cpu")))
+        for name, a, b in zip(("values", "counts", "scores", "q_end", "t_end"), want, got):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"region step {name} ({label}): CUDA != CPU")
+        print(f"  region step G={bench.G} R={bench.R} L={bench.L} LREF={bench.LREF} "
+              f"pairs {bench.GB}x{bench.GLQ}x{bench.GLT}, {label}: CUDA == CPU "
+              f"({int((want[1] > 0).sum())} kept k-mers) [{card}]", flush=True)
+
+
+def phase_measurement_path():
+    """The measurement path as a user runs it; returns each probe
+    kernel's launches in it."""
+    from breakmer_tpu_torch import bench
+    from breakmer_tpu_torch.tools import probe_mosaic_cummax as cm
+    from breakmer_tpu_torch.tools import probe_swar_i16 as i16
+    from breakmer_tpu_torch.tools import probe_swar_i16b as i16b
+    from breakmer_tpu_torch.tools import sw_ceiling_probe as ceil
+
+    counted = {"sw_ceiling_probe": ceil, "probe_i16": i16, "probe_i16b": i16b,
+               "probe_cummax": cm}
+    for mod in counted.values():
+        mod.LAUNCHES = 0  # the measurement path starts here
+    for mod in (bench, ceil, i16, i16b, cm):
+        t0 = time.perf_counter()
+        mod.main()
+        torch.cuda.synchronize()
+        print(f"  {mod.__name__}.main: {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {name: mod.LAUNCHES for name, mod in counted.items()}
+    for name, n in launches.items():
+        check(n > 0, f"the measurement path launched {name} no time")
+    return launches
+
+
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "sw_wavefront": ("breakmer_tpu_torch/csrc/sw_wavefront.cu",
+                     "breakmer_tpu/ops/sw_pallas.py:179"),
+    "sw_ceiling_probe": ("breakmer_tpu_torch/csrc/sw_ceiling_probe.cu",
+                         "tools/sw_ceiling_probe.py:43"),
+    "probe_i16": ("breakmer_tpu_torch/csrc/probe_i16.cu", "tools/probe_swar_i16.py:39"),
+    "probe_i16b": ("breakmer_tpu_torch/csrc/probe_i16.cu", "tools/probe_swar_i16b.py:28"),
+    "probe_cummax": ("breakmer_tpu_torch/csrc/probe_cummax.cu",
+                     "tools/probe_mosaic_cummax.py:19"),
+}
+
+
+def timed(label, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     from breakmer_tpu_torch import _build
+    from breakmer_tpu_torch.timing import card_line
 
     dev = torch.device("cuda")
     card = card_line()
@@ -272,20 +386,29 @@ def main() -> int:
           flush=True)
     _build.library()
 
-    rows, max_err = phase_sw(dev, card)
-    phase_kmer(dev, card)
-    phase_slice_exact(card)
-    launches = phase_slice_scale(card)
+    sw_rows, sw_err = timed("sw", phase_sw, dev, card)
+    timed("kmer", phase_kmer, dev, card)
+    timed("slice seeds 1, 7", phase_slice_exact, card)
+    sw_launches = timed("panel100", phase_slice_scale, card)
+    rows = timed("probe kernels", phase_probes, dev, card)
+    timed("region step", phase_region_step, dev, card)
+    launches = timed("measurement path", phase_measurement_path)
 
-    head = next(r for r in rows if tuple(r["shape"]) == HEADLINE)
+    head = next(r for r in sw_rows if tuple(r["shape"]) == HEADLINE)
+    rows["sw_wavefront"] = dict(max_abs_err=sw_err, shape=head["shape"], ms=head["ms"],
+                                plain_ms=head["plain_ms"])
+    launches["sw_wavefront"] = sw_launches
+    table = []
+    for name, (source, replaces) in KERNELS.items():
+        row = rows[name]
+        table.append({"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces, "launches": launches[name],
+                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                      "plain_ms": row["plain_ms"], "shape": row["shape"],
+                      **{k: row[k] for k in ("op", "device_ms", "plain_device_ms")
+                         if k in row}})
     print(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "sw_wavefront", "route": "cuda",
-        "source": "breakmer_tpu_torch/csrc/sw_wavefront.cu",
-        "replaces": "breakmer_tpu/ops/sw_pallas.py:179",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": head["ms"], "plain_ms": head["plain_ms"], "shape": head["shape"],
-    }]}))
+    print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -81,3 +81,122 @@ def test_kmer_engine_on_card_matches_cpu(card):
     for a, b in zip(want, got):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+# -- the probe kernels and the region step (every comparison exact) --------
+
+from breakmer_tpu_torch.parallel.step import make_region_step, to_numpy  # noqa: E402
+from breakmer_tpu_torch.tools import probe_mosaic_cummax as cm  # noqa: E402
+from breakmer_tpu_torch.tools import probe_swar_i16 as i16  # noqa: E402
+from breakmer_tpu_torch.tools import probe_swar_i16b as i16b  # noqa: E402
+from breakmer_tpu_torch.tools import sw_ceiling_probe as ceil  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("do_rolls", [True, False])
+@pytest.mark.parametrize("steps", [0, 1, 7, 255, None])
+def test_ceiling_probe_kernel_matches_plain(card, do_rolls, steps):
+    q, t = ceil.inputs(card)
+    before = ceil.LAUNCHES
+    got = ceil.stripped(q, t, do_rolls, steps)
+    torch.cuda.synchronize()
+    assert ceil.LAUNCHES == before + 1
+    assert torch.equal(got, ceil.stripped_plain(q, t, do_rolls, steps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lt", [(3, 300, 400), (5, 33, 33), (1, 1, 2)])
+def test_ceiling_probe_kernel_other_shapes(card, B, Lq, Lt):
+    rng = np.random.default_rng(Lq)
+    q = torch.from_numpy(rng.integers(-50, 50, (B, Lq)).astype(np.int8)).to(card)
+    t = torch.from_numpy(rng.integers(-50, 50, (B, Lt)).astype(np.int8)).to(card)
+    for do_rolls in (True, False):
+        for steps in (1, 5, Lq - 1, Lq + 3):
+            assert torch.equal(ceil.stripped(q, t, do_rolls, steps),
+                               ceil.stripped_plain(q, t, do_rolls, steps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod", [i16, i16b], ids=["i16", "i16b"])
+def test_probe_i16_ops_match_plain(card, mod):
+    before = mod.LAUNCHES
+    rows = mod.run_ops(mod.OPS, mod.run_op, mod.inputs(), card)
+    assert [r["name"] for r in rows if not r["exact"]] == []
+    assert mod.LAUNCHES > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 256), (4, 1024), (2, 33)])
+def test_probe_i16_ops_wrap_like_numpy(card, shape):
+    """Full-range int16 inputs: every op wraps as the plain int16 torch op
+    does. The indicator op is left out: the kernel's compare equals the
+    probe's indicator arithmetic only while |h - bh| < 2^15."""
+    rng = np.random.default_rng(shape[1])
+    full = lambda: rng.integers(-32768, 32768, shape).astype(np.int16)  # noqa: E731
+    arrays = {"A": full(), "B": full(), "H": full(), "BH": full(), "BD": full(),
+              "M": rng.integers(0, 2, shape).astype(np.int16) * -1,
+              "ONEHOT": np.where(np.arange(shape[1]) == 0, -1, 0).astype(np.int16)
+              * np.ones(shape, np.int16),
+              "Q32": rng.integers(0, 5, shape).astype(np.int32),
+              "T32": rng.integers(0, 5, shape).astype(np.int32)}
+    arrays["A32"] = rng.integers(-2**31, 2**31, shape).astype(np.int32)
+    ops = [op for op in i16.OPS + i16b.OPS if op.name != "indicator-select (bd update)"]
+    rows = i16.run_ops(ops, i16.run_op, arrays, card)
+    assert [r["name"] for r in rows if not r["exact"]] == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 256), (5, 1000), (3, 33), (1, 1), (2, 1024)])
+def test_cummax_kernel_matches_plain(card, shape):
+    rng = np.random.default_rng(shape[1])
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, shape).astype(np.int32)).to(card)
+    before = cm.LAUNCHES
+    got = cm.cummax(x)
+    torch.cuda.synchronize()
+    assert cm.LAUNCHES == before + 1
+    assert torch.equal(got, cm.cummax_plain(x))
+
+
+@pytest.mark.cuda
+def test_region_step_on_card_matches_cpu(card):
+    rng = np.random.default_rng(11)
+    G, R, L, Lref, B, Lq, Lt = 3, 40, 100, 700, 6, 64, 160
+    arrays = (rng.integers(0, 4, (G, R, L)).astype(np.int8),
+              rng.integers(L // 2, L + 1, (G, R)).astype(np.int32),
+              rng.integers(0, 4, (G, Lref)).astype(np.int8),
+              np.full(G, Lref, np.int32),
+              rng.integers(0, 4, (G, B, Lq)).astype(np.int8),
+              rng.integers(0, 4, (G, B, Lt)).astype(np.int8))
+    arrays[0][:, R // 2:, :50] = arrays[0][:, :R // 2, 50:]  # repeated k-mers
+    step = make_region_step(mesh=None, k=15)
+    before = sw_cuda.LAUNCHES
+    got = to_numpy(step(*(torch.from_numpy(a).to(card) for a in arrays)))
+    assert sw_cuda.LAUNCHES == before + 1  # one SW launch for all G * B pairs
+    want = to_numpy(step(*map(torch.from_numpy, arrays)))
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert (want[1] >= 2).any()
+
+
+@pytest.mark.cuda
+def test_cli_profile_traces_the_card(card, tmp_path):
+    import json
+
+    from breakmer_tpu_torch.cli import main
+    from tests.scenarios import build_scenario
+
+    cfg_kwargs, _ = build_scenario(1, tmp_path, n_genes=2, kinds=["ins", "del"])
+    cfg_kwargs.update(device="cuda", batch_regions=False, log_level="WARNING")
+    cfg_kwargs.pop("reference_data_dir", None)
+    cfg_file = tmp_path / "cfg.json"
+    cfg_file.write_text(json.dumps(cfg_kwargs))
+    out = {}
+    for name, extra in (("plain", []), ("profiled", ["--profile"])):
+        assert main(["run", str(cfg_file), "--analysis-dir", str(tmp_path / name),
+                     *extra]) == 0
+        out[name] = (tmp_path / name / "output" / "prop_svs.out").read_bytes()
+    assert out["profiled"] == out["plain"]
+    trace = json.loads((tmp_path / "profiled" / "trace" / "trace.json").read_text())
+    kernels = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"}
+    assert any("sw_wavefront" in k for k in kernels), sorted(kernels)[:20]

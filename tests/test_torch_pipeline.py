@@ -5,6 +5,7 @@ hands the port the reference-data caches the JAX run wrote (region codes
 .npy, genome seed index .npz): it must load them, rebuild nothing, and
 give the same output."""
 
+import argparse
 import json
 
 import pytest
@@ -83,3 +84,34 @@ def test_port_reuses_jax_reference_caches(tmp_path, monkeypatch):
     _, got = _run(TorchRunner, cfg_kwargs, tmp_path / "torch", prepare=prepare)
     _assert_identical(ref, got)
     assert {p.name: p.stat().st_mtime_ns for p in refdata.iterdir()} == before
+
+
+def _run_actions(parser):
+    subs = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    return sorted((a.dest, tuple(a.option_strings)) for a in subs.choices["run"]._actions)
+
+
+def test_cli_run_flags_match_jax():
+    from breakmer_tpu.cli import build_parser as jax_parser
+    from breakmer_tpu_torch.cli import build_parser as torch_parser
+
+    assert _run_actions(torch_parser()) == _run_actions(jax_parser())
+
+
+def test_cli_run_profile_writes_trace_and_same_output(tmp_path):
+    from breakmer_tpu_torch.cli import main
+
+    cfg_kwargs, _ = _scenario(1, tmp_path)
+    cfg_kwargs.pop("reference_data_dir")
+    cfg_file = tmp_path / "cfg.json"
+    cfg_file.write_text(json.dumps({**cfg_kwargs, "device": "cpu", "log_level": "WARNING"}))
+    out = {}
+    for name, extra in (("plain", []), ("profiled", ["--profile"])):
+        adir = tmp_path / name
+        assert main(["run", str(cfg_file), "--analysis-dir", str(adir), *extra]) == 0
+        out[name] = (adir / "output" / "prop_svs.out").read_bytes()
+    assert out["profiled"] == out["plain"]
+    assert out["plain"].count(b"\n") > 1
+    assert not (tmp_path / "plain" / "trace").exists()
+    traces = list((tmp_path / "profiled" / "trace").iterdir())
+    assert traces and all(p.stat().st_size > 0 for p in traces)

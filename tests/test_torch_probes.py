@@ -1,0 +1,244 @@
+"""The probes ported to the card (breakmer_tpu_torch.tools), on the CPU,
+against the JAX probes of tools/: every probe module runs with
+pl.pallas_call in interpret mode, and each body's output on the probe's
+own inputs is held against the port's plain version on the same inputs.
+All outputs are integers: tolerance 0, dtypes included. Also the bench's
+shapes against bench.py's, and the refusal of every wrapper and entry
+point to run off a card."""
+
+import ast
+import contextlib
+import io
+import runpy
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from breakmer_tpu_torch.tools import probe_mosaic_cummax as cm
+from breakmer_tpu_torch.tools import probe_swar_i16 as i16
+from breakmer_tpu_torch.tools import probe_swar_i16b as i16b
+from breakmer_tpu_torch.tools import sw_ceiling_probe as ceil
+
+REPO = Path(__file__).resolve().parent.parent
+_PALLAS_CALL = pl.pallas_call
+_RUNS = {}
+
+
+def _jax_probe(path):
+    """Run a JAX probe module with every pallas_call in interpret mode:
+    (its globals, [(kernel, inputs, output)] per call in order, stdout)."""
+    if path not in _RUNS:
+        calls = []
+
+        def interpret(kernel, **kw):
+            fn = _PALLAS_CALL(kernel, interpret=True, **kw)
+
+            def call(*args):
+                out = fn(*args)
+                calls.append((kernel, [np.array(a) for a in args], np.asarray(out)))
+                return out
+            return call
+
+        out = io.StringIO()
+        with mock.patch.object(pl, "pallas_call", interpret), \
+                contextlib.redirect_stdout(out):
+            g = runpy.run_path(str(REPO / path))
+        _RUNS[path] = (g, calls, out.getvalue())
+    return _RUNS[path]
+
+
+def _assert_same(got: torch.Tensor, want: np.ndarray):
+    got = got.numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+# numpy expectations of the lambda-only bodies, as the probes state them
+_NP_EXPECT = {
+    "i16 maximum": lambda a, b: np.maximum(a, b),
+    "i16 minimum": lambda a, b: np.minimum(a, b),
+    "i16 add": lambda a, b: (a + b).astype(np.int16),
+    "i16 sub const": lambda a: (a - 6).astype(np.int16),
+    "i16 mul": lambda a, b: (a.astype(np.int32) * b.astype(np.int32)).astype(np.int16),
+    "i16 and/or/xor/not": lambda a, b, m: ((a & ~m) | (b & m)).astype(np.int16),
+    "i32->i16 astype": lambda a: a.astype(np.int16),
+    "i16->i32 astype": lambda a: a.astype(np.int32),
+    "i16 compare-select": lambda a, b: np.maximum(a, b),
+    "i16 roll (lanes)": lambda a: np.roll(a, 1, axis=1),
+    "i16 sub tensor": lambda a, b: (a - b).astype(np.int16),
+    "i16 ashr 15": lambda a: (a >> 15).astype(np.int16),
+    "i16 shl 1": lambda a: (a << 1).astype(np.int16),
+    "i16 add splat-int16": lambda a: (a + 6).astype(np.int16),
+    "i16 add py-int": lambda a: (a + 6).astype(np.int16),
+    "i16 add full-array const": lambda a: (a + 6).astype(np.int16),
+    "i16 emulated max": lambda a, b: np.maximum(a, b),
+}
+_NAMED = {  # op name -> the JAX probe's named body
+    "indicator-select (bd update)": "k_indicator",
+    "onehot shift-right select": "k_onehot",
+    "fused mini-recurrence": "k_mini",
+    "fused mini (emulated max)": "k_mini",
+    "emulated strict-greater select": "k_upd",
+}
+_I16_CASES = [(mod, path, n) for mod, path in ((i16, "tools/probe_swar_i16.py"),
+                                               (i16b, "tools/probe_swar_i16b.py"))
+              for n in range(len(mod.OPS))]
+
+
+@pytest.mark.parametrize("mod,path,n", _I16_CASES,
+                         ids=[f"{m.__name__.rsplit('.', 1)[1]}-{m.OPS[n].name}"
+                              for m, _, n in _I16_CASES])
+def test_i16_op_matches_jax_body(mod, path, n):
+    g, calls, stdout = _jax_probe(path)
+    assert len(calls) == len(mod.OPS)
+    assert stdout.count("bit-exact=True") == len(mod.OPS)  # body == numpy, in the probe
+    op = mod.OPS[n]
+    kernel, args, want = calls[n]
+    if op.name in _NAMED:
+        assert kernel is g[_NAMED[op.name]]
+    ours = mod.inputs()
+    for name, arr in zip(op.args, args):  # the port's inputs are the probe's
+        np.testing.assert_array_equal(ours[name], arr)
+    _assert_same(mod.run_op(op, *map(torch.from_numpy, args)), want)
+    if op.name in _NP_EXPECT:
+        np.testing.assert_array_equal(want, _NP_EXPECT[op.name](*args))
+
+
+@pytest.mark.parametrize("mod,path,names", [
+    (i16, "tools/probe_swar_i16.py", ("A", "B", "M", "H", "BH", "BD", "Q32", "T32")),
+    (i16b, "tools/probe_swar_i16b.py", ("A", "B", "Q32", "T32", "H", "BH", "BD")),
+])
+def test_i16_probe_inputs_are_the_jax_probes(mod, path, names):
+    g, _, _ = _jax_probe(path)
+    ours = mod.inputs()
+    for name in names:
+        assert ours[name].dtype == g[name].dtype
+        np.testing.assert_array_equal(ours[name], g[name])
+    assert mod.SHAPE == g["SHAPE"]
+
+
+def test_i16_op_ids_are_the_kernels_enum():
+    src = (REPO / "breakmer_tpu_torch/csrc/probe_i16.cu").read_text()
+    body = src[src.index("enum Op {") + len("enum Op {"):src.index("N_OPS")]
+    enum = [w.strip() for line in body.splitlines()
+            for w in line.split("//")[0].split(",") if w.strip()]
+    assert [op.op_id for op in i16.OPS + i16b.OPS] == list(range(len(enum))) == \
+        list(range(22))
+
+
+@pytest.mark.parametrize("n", [0, 1])
+def test_cummax_matches_jax_body(n):
+    _, calls, stdout = _jax_probe("tools/probe_mosaic_cummax.py")
+    assert len(calls) == 2 and stdout.count("correct: True") == 2
+    (x,), want = calls[n][1], calls[n][2]
+    np.testing.assert_array_equal(cm.inputs(), x)
+    _assert_same(cm.cummax(torch.from_numpy(x)), want)
+
+
+@pytest.mark.parametrize("do_rolls", [True, False])
+def test_stripped_matches_jax_loop_kernel(do_rolls):
+    g, _, _ = _jax_probe("tools/sw_ceiling_probe.py")
+    assert (ceil.B, ceil.LQ, ceil.LT, ceil.U) == (g["B"], g["LQ"], g["LT"], g["U"])
+    q, t = ceil.inputs("cpu")
+    with mock.patch.object(pl, "pallas_call",
+                           lambda k, **kw: _PALLAS_CALL(k, interpret=True, **kw)):
+        want = np.asarray(g["stripped"](q.numpy(), t.numpy(), do_rolls))
+    _assert_same(ceil.stripped(q, t, do_rolls), want)
+
+
+def _np_loop(q, t, do_rolls, steps):
+    """The probe's loop in numpy, with np.roll for the lane rolls."""
+    hd1 = q.astype(np.int32)
+    hd2 = np.zeros_like(hd1)
+    fd1 = np.zeros_like(hd1)
+    tj = t[:, :q.shape[1]].astype(np.int32)
+    for _ in range(steps):
+        if do_rolls:
+            a, b, c = (np.roll(x, 1, axis=1) for x in (hd2, fd1, tj))
+        else:
+            a, b, c = np.maximum(hd2, 1), np.maximum(fd1, 2), np.maximum(tj, 3)
+        hd2, hd1, fd1, tj = hd1, np.maximum(np.maximum(a, b), np.maximum(c, hd1)), b, c
+    return hd1
+
+
+@pytest.mark.parametrize("do_rolls", [True, False])
+@pytest.mark.parametrize("steps", [0, 1, 2, 7, 100, 255])
+def test_stripped_before_saturation_matches_numpy_roll(do_rolls, steps):
+    rng = np.random.default_rng(steps)
+    q = rng.integers(-100, 100, (8, ceil.LQ)).astype(np.int8)
+    t = rng.integers(-100, 100, (8, ceil.LT)).astype(np.int8)
+    want = _np_loop(q, t, do_rolls, steps)
+    got = ceil.stripped(torch.from_numpy(q), torch.from_numpy(t), do_rolls, steps)
+    _assert_same(got, want)
+    if steps < ceil.LQ:  # not yet saturated: rows are not constant
+        assert (want != want.max(axis=1, keepdims=True)).any()
+
+
+def test_stripped_default_steps_is_the_probes():
+    assert ceil.default_steps(ceil.LQ, ceil.LT) == 768
+    assert ceil.default_steps(5, 4) == 8
+
+
+def _assignments(tree, func):
+    """Names bound to literal tuples/ints in function ``func`` of ``tree``."""
+    fn = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == func)
+    out = {}
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Tuple) \
+                and isinstance(node.value, ast.Tuple):
+            names = [e.id for e in node.targets[0].elts]
+            out.update(zip(names, ast.literal_eval(node.value)))
+        if isinstance(node, ast.Call) and getattr(node.func, "id", "") == "make_region_step":
+            out.update({kw.arg: ast.literal_eval(kw.value) for kw in node.keywords
+                        if kw.arg == "k"})
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "default_rng":
+            out["seed"] = ast.literal_eval(node.args[0])
+    return out
+
+
+def test_bench_shapes_are_bench_py():
+    from breakmer_tpu_torch import bench
+
+    tree = ast.parse((REPO / "bench.py").read_text())
+    top = {t.id: v for node in tree.body if isinstance(node, ast.Assign)
+           and isinstance(node.targets[0], ast.Tuple)
+           for t, v in zip(node.targets[0].elts, ast.literal_eval(node.value))}
+    assert (bench.B, bench.LQ, bench.LT) == (top["B"], top["LQ"], top["LT"])
+    sw = _assignments(tree, "bench_sw")
+    assert (bench.LONG_B, bench.LONG_LQ, bench.LONG_LT) == (sw["Bl"], sw["Lql"], sw["Ltl"])
+    assert sw["seed"] == 0
+    step = _assignments(tree, "bench_region_step")
+    assert (bench.G, bench.R, bench.L, bench.LREF, bench.GB, bench.GLQ, bench.GLT, bench.K) \
+        == tuple(step[n] for n in ("G", "R", "L", "LREF", "GB", "GLQ", "GLT", "k"))
+    assert step["seed"] == 1
+    shapes = [tuple(x.shape) for x in bench.region_step_inputs("cpu")]
+    assert shapes == [(8, 256, 128), (8, 256), (8, 4096), (8,), (8, 16, 256), (8, 16, 512)]
+
+
+@pytest.mark.parametrize("entry", [
+    "breakmer_tpu_torch.bench", "breakmer_tpu_torch.tools.sw_ceiling_probe",
+    "breakmer_tpu_torch.tools.probe_swar_i16", "breakmer_tpu_torch.tools.probe_swar_i16b",
+    "breakmer_tpu_torch.tools.probe_mosaic_cummax",
+])
+def test_measurement_entry_points_raise_without_a_card(entry, monkeypatch):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(entry).main()
+
+
+def test_wrappers_refuse_a_non_cpu_non_cuda_tensor():
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="CUDA"):
+        ceil.stripped(meta((4, 8), torch.int8), meta((4, 8), torch.int8), True)
+    with pytest.raises(ValueError, match="meta"):
+        cm.cummax(meta((4, 8), torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        i16.run_op(i16.OPS[0], meta((16, 256), torch.int16), meta((16, 256), torch.int16))
+    with pytest.raises(ValueError, match="CUDA"):
+        i16b.run_op(i16b.OPS[0], meta((16, 256), torch.int16), meta((16, 256), torch.int16))
