@@ -103,30 +103,34 @@ def revcomp_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
     return out.masked_fill(codes == _SENT, _SENT)
 
 
-def sort_kmers(kmers: torch.Tensor) -> torch.Tensor:
-    """Flatten and sort kmer codes; SENTINEL (invalid) slots sort last."""
-    return torch.sort(kmers.reshape(-1)).values
+def sort_kmers(kmers: torch.Tensor, start_dim: int = 0) -> torch.Tensor:
+    """Flatten and sort kmer codes; SENTINEL (invalid) slots sort last.
+    ``start_dim=1`` keeps the leading (region) dim: [G, ...] -> [G, N],
+    each row sorted (the batched form of the JAX step's ``vmap``)."""
+    return torch.sort(kmers.flatten(start_dim), dim=-1).values
 
 
 def unique_counts_sorted(sorted_kmers: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run-length encode a sorted code vector (static shape).
+    """Run-length encode a sorted code vector (static shape), along the
+    last dim: [N], or [G, N] with each row sorted.
 
-    Returns (values [N], counts [N] int32, is_start [N]): at each run
-    start, ``values`` holds the k-mer and ``counts`` its multiplicity;
-    elsewhere values=SENTINEL, counts=0.
+    Returns (values, counts int32, is_start), each shaped like the input:
+    at each run start, ``values`` holds the k-mer and ``counts`` its
+    multiplicity; elsewhere values=SENTINEL, counts=0.
     """
     s = sorted_kmers
-    n = s.shape[0]
-    prev = torch.cat([s.new_full((1,), _SENT), s[:-1]])
+    n = s.shape[-1]
+    lead = s.shape[:-1]
+    prev = torch.cat([s.new_full((*lead, 1), _SENT), s[..., :-1]], dim=-1)
     is_start = (s != prev) & (s != _SENT)
     idx = torch.arange(n, dtype=torch.int64, device=s.device)
-    # run end = next run's start (or first sentinel position)
-    total_valid = (s != _SENT).sum()
+    # run end = next run's start (or first sentinel position), per row
+    total_valid = (s != _SENT).sum(dim=-1, keepdim=True)
     # next start after each position: reverse running min
     starts = torch.where(is_start, idx, n)
-    nxt = torch.cummin(starts.flip(0), dim=0).values.flip(0)
-    nxt_after = torch.cat([nxt[1:], idx.new_full((1,), n)])
+    nxt = torch.cummin(starts.flip(-1), dim=-1).values.flip(-1)
+    nxt_after = torch.cat([nxt[..., 1:], idx.new_full((*lead, 1), n)], dim=-1)
     run_end = torch.minimum(torch.where(nxt_after > idx, nxt_after, n), total_valid)
     counts = torch.where(is_start, run_end - idx, 0).to(torch.int32)
     values = s.masked_fill(~is_start, _SENT)
@@ -137,11 +141,12 @@ def member_sorted(queries: torch.Tensor, table_sorted: torch.Tensor) -> torch.Te
     """For each query code, True iff present in the sorted table.
 
     ``table_sorted`` may contain SENTINEL padding (sorts last). SENTINEL
-    queries return False.
+    queries return False. Batched form: queries [G, N] against tables
+    [G, M], row g against table g.
     """
     pos = torch.searchsorted(table_sorted, queries)
-    pos = pos.clamp(0, table_sorted.shape[0] - 1)
-    hit = table_sorted[pos] == queries
+    pos = pos.clamp(0, table_sorted.shape[-1] - 1)
+    hit = table_sorted.gather(-1, pos) == queries
     return hit & (queries != _SENT)
 
 
@@ -152,7 +157,8 @@ def subtract_sorted(
     normal_sorted: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """sample_only = sample - reference [- normal], with counts preserved.
-    Returns (values, counts) with removed entries set to (SENTINEL, 0)."""
+    Returns (values, counts) with removed entries set to (SENTINEL, 0).
+    Batched form: [G, N] samples against [G, M] tables, row by row."""
     drop = member_sorted(sample_values, ref_sorted)
     if normal_sorted is not None:
         drop = drop | member_sorted(sample_values, normal_sorted)

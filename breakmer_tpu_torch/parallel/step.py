@@ -9,13 +9,15 @@ returns and ``bench.py`` times:
        ref_lengths [G] int32, SW pairs q [G, B, Lq] / t [G, B, Lt] int8
   out: per-region sample-only k-mer values / counts, SW scores and ends
 
-The JAX step ``vmap``s over regions; here the k-mer half is a loop over
-the G regions (each a handful of torch ops over R·W codes) and the SW
-half is one ``sw_score_auto`` call over all G·B pairs, reshaped back to
-[G, B]: one kernel launch a step on the card. SW tie-breaks are per pair,
-so flattening changes no result. The k-mer values are int64 on the
+The JAX step ``vmap``s ``_per_region_kmers`` over regions; here the
+region dim is written out: one set of torch ops over all G regions
+(row-wise sorts, ``cummin`` and ``searchsorted``; ``ops/kmer.py``). The
+SW half is one ``sw_score_auto`` call over all G·B pairs, reshaped back
+to [G, B]: one kernel launch a step on the card. SW tie-breaks are per
+pair, so flattening changes no result. The k-mer values are int64 on the
 device, as in ``ops/kmer.py``; ``to_numpy`` gives the JAX step's dtypes
-(values ``np.uint32``).
+(values ``np.uint32``). ``parallel/kmer_batch.py`` shares
+``_per_region_kmers``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -32,22 +34,29 @@ from breakmer_tpu_torch.ops.kmer import (
 from breakmer_tpu_torch.ops.sw import SWParams, sw_score_auto
 
 
-def _per_region_kmers(reads, lengths, ref, ref_length,
+def _per_region_kmers(reads, lengths, refs, ref_lengths,
                       normal_reads=None, normal_lengths=None,
                       *, k: int, min_count: int):
-    """One region: sample-only k-mer values/counts (static shapes: one
-    slot per sample k-mer window, SENTINEL / 0 where none is kept).
-    ``normal_reads``/``normal_lengths`` add the matched-normal
-    subtraction, as in the JAX step."""
-    km, _ = kmer_codes(reads, lengths, k)
-    values, counts, _ = unique_counts_sorted(sort_kmers(km))
-    rkm, _ = kmer_codes(ref[None, :], ref_length[None], k)
-    rkm = rkm.reshape(-1)
-    table = torch.sort(torch.cat([rkm, revcomp_kmers(rkm, k)])).values
+    """G regions at once: sample-only k-mer values/counts [G, N], with
+    N = R * (L - k + 1) (static shapes: one slot per sample k-mer window,
+    SENTINEL / 0 where none is kept).
+
+    reads [G, R, L], lengths [G, R], refs [G, Lref], ref_lengths [G];
+    ``normal_reads`` [G, Rn, Ln] / ``normal_lengths`` [G, Rn] add the
+    matched-normal subtraction (one-strand normal table, as in the JAX
+    step). A region with no normal reads passes all-PAD rows, whose
+    k-mer table is all sentinels and subtracts nothing."""
+    G, R, L = reads.shape
+    km, _ = kmer_codes(reads.reshape(G * R, L), lengths.reshape(G * R), k)
+    values, counts, _ = unique_counts_sorted(sort_kmers(km.reshape(G, -1), 1))
+    rkm, _ = kmer_codes(refs, ref_lengths, k)
+    table = torch.sort(torch.cat([rkm, revcomp_kmers(rkm, k)], dim=-1), dim=-1).values
     normal_table = None
     if normal_reads is not None:
-        nkm, _ = kmer_codes(normal_reads, normal_lengths, k)
-        normal_table = sort_kmers(nkm)
+        Rn, Ln = normal_reads.shape[1:]
+        nkm, _ = kmer_codes(normal_reads.reshape(G * Rn, Ln),
+                            normal_lengths.reshape(G * Rn), k)
+        normal_table = sort_kmers(nkm.reshape(G, -1), 1)
     values, counts = subtract_sorted(values, counts, table, normal_table)
     keep = counts >= min_count
     return values.masked_fill(~keep, _SENT), counts.masked_fill(~keep, 0)
@@ -75,13 +84,8 @@ def make_region_step(
         )
 
     def step(reads, lengths, refs, ref_lengths, q, t):
-        per_region = [
-            _per_region_kmers(reads[g], lengths[g], refs[g], ref_lengths[g],
-                              k=k, min_count=min_count)
-            for g in range(reads.shape[0])
-        ]
-        values = torch.stack([v for v, _ in per_region])
-        counts = torch.stack([c for _, c in per_region])
+        values, counts = _per_region_kmers(reads, lengths, refs, ref_lengths,
+                                           k=k, min_count=min_count)
         G, B = q.shape[:2]
         flat = sw_score_auto(q.reshape(G * B, -1), t.reshape(G * B, -1), params)
         scores, q_end, t_end = (x.reshape(G, B) for x in flat)

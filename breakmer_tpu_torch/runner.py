@@ -10,10 +10,14 @@ in-memory object), reference data is cached as packed .npy artifacts
 (content-addressed by region), and a per-region completion ledger enables
 resume at region granularity (SURVEY.md §5 checkpoint/resume).
 
-Port of breakmer_tpu/runner.py: the serial path only. The batched panel
-path, the sharded genome index and multihost runs are not ported yet
-(setup raises for their knobs); ``Config.device`` picks the torch device
-of the k-mer and SW stages (breakmer_tpu_torch.device).
+Port of breakmer_tpu/runner.py: the serial path and the batched panel
+path (``batch_regions``). The reference's Pool(nprocs) maps to nprocs
+host worker THREADS over the batched path's host stages (extract /
+assemble / classify), with every cross-region ordering decision kept on
+the main thread so nprocs>1 output is byte-identical to nprocs=1. The
+sharded genome index and multihost runs are not ported yet (setup raises
+for their knobs); ``Config.device`` picks the torch device of the k-mer
+and SW stages (breakmer_tpu_torch.device).
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ class Runner:
         self._preload_resolved: Optional[bool] = None  # _preload_effective()
         self._global_disc = None   # run-level DiscordantPairs (lazy)
         self.total_calls = 0  # rows in the aggregate output (incl. resumed)
+        self.kmer_pipeline = None  # the batched run's KmerBatchPipeline
         import threading
 
         # serializes indexed-BAM seeks when nprocs>1 (shared file handle)
@@ -70,8 +75,7 @@ class Runner:
         cfg = self.cfg
         cfg.validate()
         setup_logger(cfg.analysis_dir, cfg.log_level)
-        for knob, item in (("batch_regions", 1), ("shard_genome_index", 3),
-                           ("multihost", 4)):
+        for knob, item in (("shard_genome_index", 3), ("multihost", 4)):
             if getattr(cfg, knob):
                 raise NotImplementedError(
                     f"{knob} is not ported to breakmer_tpu_torch yet "
@@ -356,6 +360,17 @@ class Runner:
 
         return provide
 
+    def _prewarm_extraction(self, first_target: TargetRegion) -> None:
+        """Build every lazily-initialized shared structure the extraction
+        workers read (native columns, preloaded records + interval bins)
+        ON THE MAIN THREAD, so nprocs>1 workers only ever read them."""
+        if self._ensure_native_cols():
+            self._ensure_native_cov_bins()
+            return
+        if self._preload_effective():
+            chrom, start, end = first_target.span(self.cfg.region_buffer)
+            self._region_records(chrom, start, end)
+
     def _ensure_record_bins(self) -> None:
         """One-time per-chrom interval arrays over the preloaded records:
         the per-region linear scan with python record_overlaps calls
@@ -533,6 +548,8 @@ class Runner:
         METER.reset()  # per-run stage/GCUPS counters (-> metrics.json)
         if not self.targets:
             self.setup()
+        if cfg.batch_regions:
+            return self._run_batched(resume)
         return self._run_serial(resume)
 
     def _run_serial(self, resume: bool) -> List[SVEvent]:
@@ -606,6 +623,215 @@ class Runner:
             rid = f"{self.cfg.analysis_name}_{region}_{i}"
             recs.extend(event_vcf_records(ev, rid, ref_base_at))
         return recs
+
+    def _run_batched(self, resume: bool) -> List[SVEvent]:
+        """Config #3 path: the whole panel's k-mer stage in packed
+        multi-region device launches (parallel/kmer_batch), then per-region
+        assemble/realign/call. A matched normal rides in the same packed
+        launches (RegionBatch.normal_reads; in-device subtraction —
+        batched ≡ serial calls, cross-tested)."""
+        from breakmer_tpu_torch.parallel.kmer_batch import KmerBatchPipeline
+
+        cfg = self.cfg
+        ledger = self._load_ledger() if resume else {}
+        all_events: List[SVEvent] = []
+        t_start = time.time()
+
+        # the packed k-mer launches run on self.device alone, and dispatch
+        # DURING extraction. (The JAX package shards them over a mesh when
+        # a process has several devices; that is ROADMAP Queue 1, item 2.
+        # Per-region results do not depend on it.)
+        log.info("kmer batch on %s (the multi-device mesh is not ported: "
+                 "ROADMAP Queue 1, item 2)", self.device)
+        rpb = max(1, int(cfg.kmer_regions_per_batch or 32))
+        kb = KmerBatchPipeline(
+            cfg.kmer_size, cfg.min_kmer_count, regions_per_batch=rpb,
+            device=self.device,
+        )
+        self.kmer_pipeline = kb
+
+        # host worker pool (reference parity: runner.run forks a
+        # Pool(nprocs) over targets — SURVEY.md §2 #19). Here the device
+        # already batches across regions, so nprocs threads parallelize
+        # the HOST stages only: per-region extraction/cleaning, assembly,
+        # and classification. Threads, not processes: the hot host work is
+        # numpy/ctypes (GIL released), and per-region state stays shared.
+        # Determinism: results are per-region and every cross-region
+        # ordering decision (kb.add packing order, realign item order,
+        # ledger append order) is made on the main thread in target order,
+        # so nprocs>1 output is byte-identical to nprocs=1 (tested).
+        pool = None
+        nprocs = max(1, int(cfg.nprocs or 1))
+        if nprocs > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = ThreadPoolExecutor(max_workers=nprocs)
+            log.info("host worker pool: %d threads", nprocs)
+
+        # phase A: extract + clean every region (host, streaming); full
+        # tier groups dispatch their device launch immediately, so the
+        # k-mer stage runs under the remaining extraction (VERDICT r1 #4)
+        pipes: Dict[str, TargetPipeline] = {}
+        order: List[str] = []
+        for name, target in self.targets.items():
+            if name in ledger:
+                log.info("target %s: resumed from ledger", name)
+                continue
+            region_ref = self.region_ref(target)
+            pipe = TargetPipeline(
+                cfg, target, region_ref, genome=self.genome, rmask=self.rmask,
+                normal_batch=self._normal_batch(target), device=self.device,
+            )
+            pipe.global_coverage_at = self._global_coverage_at
+            pipe.user_filter = self.user_filter
+            pipe.all_reads_provider = self._all_reads_provider(target)
+            if cfg.global_disc_support:
+                pipe.disc_override = self._global_disc_pairs()
+            pipes[name] = pipe
+            order.append(name)
+
+        def extract_one(name: str) -> bool:
+            pipe = pipes[name]
+            target = self.targets[name]
+            ext = self._columnar_extract(target)
+            if ext is not None:
+                return pipe.extract_and_clean(extract_result=ext)
+            chrom, start, end = target.span(cfg.region_buffer)
+            if pool is not None and not self._preload_effective():
+                # the indexed-BAM reader seeks on one shared handle
+                with self._records_lock:
+                    records = list(self._region_records(chrom, start, end))
+            else:
+                records = self._region_records(chrom, start, end)
+            return pipe.extract_and_clean(records)
+
+        if pool is not None and order:
+            # shared read-only state must exist BEFORE workers touch it
+            self._prewarm_extraction(self.targets[order[0]])
+            futs = [(n, pool.submit(extract_one, n)) for n in order]
+            for name, fut in futs:  # kb.add in target order: deterministic
+                if fut.result():
+                    pipe = pipes[name]
+                    kb.add(name, pipe.clean_batch, pipe.region_ref.codes,
+                           pipe.normal_batch)
+        else:
+            for name in order:
+                if extract_one(name):
+                    pipe = pipes[name]
+                    kb.add(name, pipe.clean_batch, pipe.region_ref.codes,
+                           pipe.normal_batch)
+
+        # phase B/C overlap: assemble each batch's regions as its fetch
+        # lands while later batches still run on device; then realign
+        # EVERY contig of the panel in lockstep batched device launches
+        from breakmer_tpu.encode import encode_seq
+        from breakmer_tpu_torch.align.realign import realign_contigs
+
+        t0c = time.time()
+        items = []
+        item_owner = []
+
+        def assemble_one(name: str, pipe: TargetPipeline) -> list:
+            """Per-region assembly; returns this region's realign items so
+            the main thread appends them in deterministic target order."""
+            out = []
+            try:
+                for contig in pipe.assemble_contigs():
+                    out.append((encode_seq(contig.seq), pipe.region_ref))
+            except Exception as exc:
+                log.exception("target %s assembly failed", name)
+                pipe.contigs = []
+                pipe._assembly_error = f"{type(exc).__name__}: {exc}"
+            return out
+
+        def collect(name: str, region_items: list) -> None:
+            items.extend(region_items)
+            item_owner.extend([name] * len(region_items))
+
+        assembled = set()
+        for region_kmers in kb.results():
+            group = list(region_kmers.items())
+            if pool is not None:
+                for name, vc in group:
+                    pipes[name].set_kmers(*vc)
+                futs = [
+                    (name, pool.submit(assemble_one, name, pipes[name]))
+                    for name, _ in group
+                ]
+                for name, fut in futs:
+                    collect(name, fut.result())
+                    assembled.add(name)
+            else:
+                for name, vc in group:
+                    pipes[name].set_kmers(*vc)
+                    collect(name, assemble_one(name, pipes[name]))
+                    assembled.add(name)
+        for name, pipe in pipes.items():
+            if name not in assembled:
+                collect(name, assemble_one(name, pipe))  # no kmers -> empty
+        log.info("kmer batch: %d packed launches, %d overflow refetches",
+                 kb.dispatched, kb.refetched)
+        segs_all = []
+        if items:
+            any_pipe = next(iter(pipes.values()))
+            segs_all = realign_contigs(
+                items, genome=self.genome, params=any_pipe.sw_params(),
+                **any_pipe.realign_opts(), device=self.device,
+            )
+        log.info(
+            "panel realign: %d contigs in %.2fs", len(items), time.time() - t0c
+        )
+        segs_by_region: Dict[str, list] = {name: [] for name in pipes}
+        for owner, segs in zip(item_owner, segs_all):
+            segs_by_region[owner].append(segs)
+
+        def classify_one(name: str):
+            t0 = time.time()
+            pipe = pipes[name]
+            try:
+                if getattr(pipe, "_assembly_error", None):
+                    raise RuntimeError(pipe._assembly_error)
+                result = pipe.classify_contigs(segs_by_region[name])
+            except Exception as exc:  # region-level fault isolation
+                log.exception("target %s failed", name)
+                result = RegionResult(
+                    target=pipe.target, events=[], all_events=[], contigs=[],
+                    error=f"{type(exc).__name__}: {exc}",
+                )
+            return result, time.time() - t0
+
+        if pool is not None:
+            classified = dict(zip(order, pool.map(classify_one, order)))
+            pool.shutdown(wait=True)
+        else:
+            classified = None
+        for name, pipe in pipes.items():
+            t0 = time.time()
+            if classified is not None:
+                result, dt = classified[name]
+            else:
+                result, dt = classify_one(name)
+            self._annotate_other_regions(result.events)
+            if cfg.keep_intermediates:
+                self._write_intermediates(name, pipe, result)
+            self.results.append(result)
+            all_events.extend(result.events)
+            log.info(
+                "target %s [batched]: %d sv reads, %d kmers, %d contigs, "
+                "%d calls in %.2fs%s",
+                name, result.n_sv_reads, result.n_sample_kmers,
+                len(result.contigs), len(result.events), dt + time.time() - t0,
+                f" ERROR={result.error}" if result.error else "",
+            )
+            ledger[name] = {
+                "rows": [event_row(ev) for ev in result.events],
+                "vcf": self._vcf_records(name, result.events),
+                "error": result.error,
+                "elapsed_s": round(dt + time.time() - t0, 3),
+                "stats": _region_stats(result),
+            }
+            self._append_ledger(name, ledger[name])
+        return self._finalize(ledger, all_events, t_start)
 
     def _annotate_other_regions(self, events: List[SVEvent]) -> None:
         """Annotate events whose breakpoints fall in ``other_regions_file``

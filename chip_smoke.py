@@ -21,11 +21,19 @@ phase's wall time is printed):
   7. the probe kernels against their plain versions on the card, exact:
      the stripped SW loop in both forms at steps 1, 7, 255 and the
      default, every int16 op of both int16 probes, the running max;
-  8. the region step on the card against the CPU, exact, at the bench's
+  8. the batched panel path on the same 100-gene panel (batch_regions,
+     32 regions a packed k-mer launch) on the card, nprocs 1 (cold, then
+     warm) and 4: svs.out and the VCF byte-identical to phase 6's serial
+     output, no region error, every SW batch launched the kernel;
+  9. the k-mer batch step on the card against the CPU, exact, full and
+     packed, at 32 regions of 512 reads with a matched normal; both
+     timed with their fetch;
+ 10. the region step on the card against the CPU, exact, at the bench's
      shape;
-  9. the measurement path, as a user runs it: python -m
-     breakmer_tpu_torch.bench, then the ceiling probe and the three
-     probes of breakmer_tpu_torch.tools; each of their kernels must have
+ 11. the measurement path, as a user runs it: python -m
+     breakmer_tpu_torch.bench, the ceiling probe and the three probes of
+     breakmer_tpu_torch.tools, then python -m
+     breakmer_tpu_torch.bench_panel; each probe kernel must have
      launched.
 The last two lines are the kernel table and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -49,6 +57,7 @@ SW_SHAPES = [(512, 256, 512), (301, 128, 256), (37, 1024, 2048), (16, 1024, 6144
              (8, 3072, 2048), (64, 512, 16384), (2, 10240, 2048)]
 HEADLINE = (512, 256, 512)
 CI_KINDS = {1: ["ins", "del", "dup", None], 7: ["inv", "trl", None, None]}
+OUTPUTS = ("prop_svs.out", "prop.vcf")
 
 
 class SmokeFailure(RuntimeError):
@@ -164,7 +173,7 @@ def run_panel(cfg_kwargs, out: Path, device: str):
     t2 = time.perf_counter()
     metrics = json.loads((out / "metrics.json").read_text())
     check(not metrics["errors"], f"{device} run: region errors {metrics['errors']}")
-    return events, metrics, t1 - t0, t2 - t1
+    return events, metrics, t1 - t0, t2 - t1, runner
 
 
 def checker_results(checks, events):
@@ -184,7 +193,7 @@ def phase_slice_exact(card):
         cfg_kwargs, checks = build_scenario(seed, work, n_genes=4, kinds=kinds,
                                             with_normal_germline=True, multi_sv_gene=True)
         cfg_kwargs["batch_regions"] = False
-        events, _, _, run_s = run_panel(cfg_kwargs, work / "cuda", "cuda")
+        events, _, _, run_s, _ = run_panel(cfg_kwargs, work / "cuda", "cuda")
         fails = [f"{g} ({k}): {f}" for g, (k, fs) in checker_results(checks, events).items()
                  for f in fs]
         check(not fails, f"seed {seed} on CUDA: " + "; ".join(fails))
@@ -193,9 +202,9 @@ def phase_slice_exact(card):
     torch.cuda.synchronize()
 
 
-def phase_slice_scale(card):
-    from breakmer_tpu.utils.meter import METER
-    from breakmer_tpu_torch.ops import sw_cuda
+def build_panel100():
+    """The 100-gene errored panel with a matched normal and a two-SV gene
+    (scenario seed 5, deeper coverage): (cfg_kwargs, checks, work)."""
     from tests.scenarios import build_scenario
 
     work = WORK / "panel100"
@@ -203,18 +212,25 @@ def phase_slice_scale(card):
     t0 = time.perf_counter()
     cfg_kwargs, checks = build_scenario(5, work, n_genes=100, read_step=2,
                                         with_normal_germline=True, multi_sv_gene=True)
-    cfg_kwargs["batch_regions"] = False
     print(f"  panel built in {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg_kwargs, checks, work
 
+
+def phase_slice_scale(card, panel):
+    from breakmer_tpu.utils.meter import METER
+    from breakmer_tpu_torch.ops import sw_cuda
+
+    cfg_kwargs, checks, work = panel
+    cfg_kwargs = {**cfg_kwargs, "batch_regions": False}
     sw_cuda.LAUNCHES = 0  # main path starts here
-    events, metrics, setup_s, run_s = run_panel(cfg_kwargs, work / "cuda", "cuda")
+    events, metrics, setup_s, run_s, _ = run_panel(cfg_kwargs, work / "cuda", "cuda")
     launches = sw_cuda.LAUNCHES
     sw_batches = METER.sw_launches
     check(launches > 0, "main path launched the SW kernel no time")
     check(launches == sw_batches,
           f"SW kernel launches {launches} != sw_score_batch calls {sw_batches}")
-    cpu_events, cpu_metrics, _, cpu_s = run_panel(cfg_kwargs, work / "cpu", "cpu")
-    for name in ("prop_svs.out", "prop.vcf"):
+    _, _, _, cpu_s, _ = run_panel(cfg_kwargs, work / "cpu", "cpu")
+    for name in OUTPUTS:
         a = (work / "cuda" / "output" / name).read_bytes()
         b = (work / "cpu" / "output" / name).read_bytes()
         check(a == b, f"100-gene panel {name}: CUDA != CPU")
@@ -237,6 +253,78 @@ def phase_slice_scale(card):
     print(f"  panel100 CUDA stage seconds: {stages}", flush=True)
     torch.cuda.synchronize()
     return launches
+
+
+def phase_batched_panel(card, panel, serial_sw_batches):
+    """The batched path on the 100-gene panel: nprocs 1 cold, nprocs 1
+    warm (timed), nprocs 4; each byte-identical to phase 6's serial CUDA
+    output. Returns the warm run's SW kernel launches."""
+    from breakmer_tpu.utils.meter import METER
+    from breakmer_tpu_torch.ops import sw_cuda
+
+    cfg_kwargs, _, work = panel
+    serial = {name: (work / "cuda" / "output" / name).read_bytes() for name in OUTPUTS}
+    warm_launches = 0
+    for label, nprocs in (("cold", 1), ("warm", 1), ("nprocs4", 4)):
+        kw = {**cfg_kwargs, "batch_regions": True, "nprocs": nprocs}
+        out = work / f"batched_{label}"
+        sw_cuda.LAUNCHES = 0  # this run of the batched path starts here
+        events, metrics, setup_s, run_s, runner = run_panel(kw, out, "cuda")
+        launches = sw_cuda.LAUNCHES
+        sw_batches = METER.sw_launches
+        check(launches > 0, f"batched {label}: the SW kernel launched no time")
+        check(launches == sw_batches,
+              f"batched {label}: SW kernel launches {launches} != SW batches {sw_batches}")
+        for name in OUTPUTS:
+            check((out / "output" / name).read_bytes() == serial[name],
+                  f"batched {label} {name} != the serial CUDA output")
+        kb = runner.kmer_pipeline
+        n_regions = metrics["targets"]
+        n_reads = sum(r["records"] for r in metrics["regions"].values())
+        stages = {k: round(metrics["stage_s"].get(k, 0.0), 4)
+                  for k in ("kmer_device", "extract_clean", "assemble", "realign", "classify")}
+        print(f"  batched panel100 {label} (nprocs {nprocs}): {len(events)} calls in "
+              f"{run_s:.4f} s (setup {setup_s:.2f} s): {n_regions / run_s:.2f} regions/s, "
+              f"{n_reads / run_s:.1f} reads/s; stage s {stages}; {kb.dispatched} packed "
+              f"k-mer launches, {kb.refetched} overflow refetches; SW {sw_batches} batches "
+              f"(serial run: {serial_sw_batches}), {metrics['sw']['cells']} cells; "
+              f"svs.out and VCF == serial [{card}]", flush=True)
+        if label == "warm":
+            warm_launches = launches
+    torch.cuda.synchronize()
+    return warm_launches
+
+
+def phase_kmer_batch_step(dev, card):
+    """The full and packed k-mer batch steps, card against CPU, exact; then
+    each timed with its fetch (CUDA events, median of 5)."""
+    from breakmer_tpu_torch.parallel import kmer_batch as kb
+    from breakmer_tpu_torch.timing import cuda_ms
+
+    # 256 novel bases a region: the kept k-mers fit the packed buffer
+    G, R, L, LREF, RN = 32, 512, 128, 4096, 256
+    tiled = tiled_region_inputs(G, R, L, LREF, 0, 1, 1, RN=RN, NOVEL=256)
+    host = tuple(torch.from_numpy(a) for a in tiled[:4] + tiled[6:])
+    args = tuple(a.to(dev) for a in host)
+    cap = G * kb._PACK_SLOTS_PER_REGION
+    forms = {"full": (kb._kmer_body(15, 2), kb._fetch_full),
+             "packed": (kb._kmer_step_packed(15, 2, cap), lambda o: kb._fetch_packed([o]))}
+    step_ms = cuda_ms(lambda: forms["full"][0](*args))
+    print(f"  kmer batch step G={G} R={R} L={L} LREF={LREF} normal {RN}x{L}: "
+          f"step alone {step_ms:.4f} ms [{card}]", flush=True)
+    for name, (step, fetch) in forms.items():
+        want = step(*host)
+        got = step(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(want, got):
+            check(a.dtype == b.dtype and torch.equal(a, b.cpu()),
+                  f"kmer batch step ({name}): CUDA != CPU")
+        nbytes = sum(x.numel() * x.element_size() for x in got)
+        ms = cuda_ms(lambda: fetch(step(*args)))
+        kept = int(got[2]) if name == "packed" else int((got[1] > 0).sum())
+        check(kept > 0, f"kmer batch step ({name}): no sample-only k-mers")
+        print(f"  kmer batch step {name}: CUDA == CPU, {kept} kept k-mers; step + fetch "
+              f"{ms:.4f} ms, fetch {nbytes} bytes [{card}]", flush=True)
 
 
 def phase_probes(dev, card):
@@ -286,19 +374,32 @@ def phase_probes(dev, card):
     return rows
 
 
-def tiled_region_inputs(G, R, L, LREF, GB, GLQ, GLT, seed=3):
+def tiled_region_inputs(G, R, L, LREF, GB, GLQ, GLT, RN=0, NOVEL=None, seed=3):
     """Region-step inputs whose reads tile a haplotype (about 8x at the
-    bench's shape) that shares only its first half with the reference,
-    so many sample-only k-mers pass min_count; SW pairs are random."""
+    bench's shape) that shares only its first half with the reference
+    (and its tail past NOVEL bases, if given), so many sample-only
+    k-mers pass min_count; SW pairs are random. ``RN`` > 0 appends a
+    matched normal of RN reads tiled over the haplotype up to half its
+    novel bases, all PAD in region 0, and its lengths."""
+    NOVEL = LREF - LREF // 2 if NOVEL is None else NOVEL
     rng = np.random.default_rng(seed)
     hap = rng.integers(0, 4, (G, LREF)).astype(np.int8)
     refs = hap.copy()
-    refs[:, LREF // 2:] = rng.integers(0, 4, (G, LREF - LREF // 2))
-    starts = rng.integers(0, LREF - L + 1, (G, R))
-    reads = hap[np.arange(G)[:, None, None], starts[:, :, None] + np.arange(L)]
-    return (reads, np.full((G, R), L, np.int32), refs, np.full(G, LREF, np.int32),
-            rng.integers(0, 4, (G, GB, GLQ)).astype(np.int8),
-            rng.integers(0, 4, (G, GB, GLT)).astype(np.int8))
+    refs[:, LREF // 2:LREF // 2 + NOVEL] = rng.integers(0, 4, (G, NOVEL))
+
+    def tile(n, hi):
+        starts = rng.integers(0, hi - L + 1, (G, n))
+        return hap[np.arange(G)[:, None, None], starts[:, :, None] + np.arange(L)]
+
+    out = (tile(R, LREF), np.full((G, R), L, np.int32), refs, np.full(G, LREF, np.int32),
+           rng.integers(0, 4, (G, GB, GLQ)).astype(np.int8),
+           rng.integers(0, 4, (G, GB, GLT)).astype(np.int8))
+    if RN:
+        normal = tile(RN, LREF // 2 + NOVEL // 2)
+        normal_lengths = np.full((G, RN), L, np.int32)
+        normal[0], normal_lengths[0] = 4, 0
+        out += (normal, normal_lengths)
+    return out
 
 
 def phase_region_step(dev, card):
@@ -327,7 +428,7 @@ def phase_region_step(dev, card):
 def phase_measurement_path():
     """The measurement path as a user runs it; returns each probe
     kernel's launches in it."""
-    from breakmer_tpu_torch import bench
+    from breakmer_tpu_torch import bench, bench_panel
     from breakmer_tpu_torch.tools import probe_mosaic_cummax as cm
     from breakmer_tpu_torch.tools import probe_swar_i16 as i16
     from breakmer_tpu_torch.tools import probe_swar_i16b as i16b
@@ -343,6 +444,10 @@ def phase_measurement_path():
         torch.cuda.synchronize()
         print(f"  {mod.__name__}.main: {time.perf_counter() - t0:.1f} s", flush=True)
     launches = {name: mod.LAUNCHES for name, mod in counted.items()}
+    t0 = time.perf_counter()
+    bench_panel.main([])
+    print(f"  breakmer_tpu_torch.bench_panel.main: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for name, n in launches.items():
         check(n > 0, f"the measurement path launched {name} no time")
     return launches
@@ -389,14 +494,19 @@ def main() -> int:
     sw_rows, sw_err = timed("sw", phase_sw, dev, card)
     timed("kmer", phase_kmer, dev, card)
     timed("slice seeds 1, 7", phase_slice_exact, card)
-    sw_launches = timed("panel100", phase_slice_scale, card)
+    panel = build_panel100()
+    sw_launches = timed("panel100", phase_slice_scale, card, panel)
+    batched_launches = timed("batched panel100", phase_batched_panel, card, panel,
+                             sw_launches)
+    timed("kmer batch step", phase_kmer_batch_step, dev, card)
     rows = timed("probe kernels", phase_probes, dev, card)
     timed("region step", phase_region_step, dev, card)
     launches = timed("measurement path", phase_measurement_path)
 
     head = next(r for r in sw_rows if tuple(r["shape"]) == HEADLINE)
     rows["sw_wavefront"] = dict(max_abs_err=sw_err, shape=head["shape"], ms=head["ms"],
-                                plain_ms=head["plain_ms"])
+                                plain_ms=head["plain_ms"],
+                                batched_path_launches=batched_launches)
     launches["sw_wavefront"] = sw_launches
     table = []
     for name, (source, replaces) in KERNELS.items():
@@ -405,8 +515,8 @@ def main() -> int:
                       "replaces": replaces, "launches": launches[name],
                       "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                       "plain_ms": row["plain_ms"], "shape": row["shape"],
-                      **{k: row[k] for k in ("op", "device_ms", "plain_device_ms")
-                         if k in row}})
+                      **{k: row[k] for k in ("op", "device_ms", "plain_device_ms",
+                                             "batched_path_launches") if k in row}})
     print(card_line())
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -200,3 +200,84 @@ def test_cli_profile_traces_the_card(card, tmp_path):
     trace = json.loads((tmp_path / "profiled" / "trace" / "trace.json").read_text())
     kernels = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"}
     assert any("sw_wavefront" in k for k in kernels), sorted(kernels)[:20]
+
+
+# -- the batched panel path (k-mer batch step, batched runner) ---------------
+
+def _batch_regions():
+    """Regions whose reads carry a novel insertion; a matched normal that
+    covers one of the insertions and is missing for another region."""
+    from breakmer_tpu.encode import ReadBatch, encode_seq
+    from tests.fixtures import rand_seq
+
+    out = []
+    for i in range(6):
+        ref = rand_seq(300 + i, 900 + 150 * i)
+        hap = ref[:400] + rand_seq(400 + i, 60) + ref[400:]
+        reads = ReadBatch.from_seqs([hap[s:s + 90] for s in range(200, 560, 3 + i)])
+        normal = None if i == 4 else ReadBatch.from_seqs(
+            [(hap if i == 1 else ref)[s:s + 90] for s in range(250, 600, 11)])
+        out.append((f"K{i}", reads, encode_seq(ref), normal))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [512, 1], ids=["packed", "overflow"])
+def test_kmer_batch_on_card_matches_cpu(card, slots, monkeypatch):
+    from breakmer_tpu_torch.parallel import kmer_batch as kb
+
+    monkeypatch.setattr(kb, "_PACK_SLOTS_PER_REGION", slots)
+    out = {}
+    for dev in ("cpu", card):
+        pipe = kb.KmerBatchPipeline(15, regions_per_batch=2, device=dev)
+        for r in _batch_regions():
+            pipe.add(*r)
+        out[str(dev)] = (pipe.finish(), pipe.refetched)
+    (want, want_refetched), (got, got_refetched) = out.values()
+    assert list(got) == list(want) and got_refetched == want_refetched
+    assert (got_refetched > 0) == (slots == 1)
+    for name in want:
+        for a, b in zip(want[name], got[name]):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kmer_batch_step_forms_on_card_match_cpu(card):
+    """The full and the packed step, raw outputs, card against CPU."""
+    from breakmer_tpu_torch.parallel import kmer_batch as kb
+    from breakmer_tpu_torch.parallel.regions import pack_region_batches
+
+    batches = pack_region_batches(_batch_regions(), 4)
+    assert len(batches) > 1  # several pad tiers
+    for b in batches:
+        args = [torch.from_numpy(a) for a in kb._step_args(b)]
+        cap = 4 * kb._PACK_SLOTS_PER_REGION
+        for step in (kb._kmer_body(15, 2), kb._kmer_step_packed(15, 2, cap)):
+            want = step(*args)
+            got = step(*(a.to(card) for a in args))
+            for a, g in zip(want, got):
+                assert a.dtype == g.dtype and torch.equal(a, g.cpu())
+        assert int(want[2]) > 0  # the packed step found k-mers, no overflow
+
+
+@pytest.mark.cuda
+def test_cli_batched_run_on_card_launches_the_kernel(card, tmp_path):
+    import json
+
+    from breakmer_tpu.utils.meter import METER
+    from breakmer_tpu_torch.cli import main
+    from tests.scenarios import build_scenario
+
+    cfg_kwargs, _ = build_scenario(1, tmp_path, n_genes=2, kinds=["ins", "del"])
+    cfg_kwargs.update(batch_regions=True, log_level="WARNING")
+    cfg_kwargs.pop("reference_data_dir", None)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg_file = tmp_path / f"{dev}.json"
+        cfg_file.write_text(json.dumps({**cfg_kwargs, "device": dev}))
+        before = sw_cuda.LAUNCHES
+        assert main(["run", str(cfg_file), "--analysis-dir", str(tmp_path / dev)]) == 0
+        out[dev] = (tmp_path / dev / "output" / "prop_svs.out").read_bytes()
+    assert sw_cuda.LAUNCHES - before == METER.sw_launches > 0  # every SW batch
+    assert out["cuda"] == out["cpu"] and out["cuda"].count(b"\n") > 1

@@ -1,5 +1,6 @@
 """The port imports torch and never jax; its device selection raises
-instead of falling back; its runner refuses the knobs it has not ported."""
+instead of falling back; its runner refuses the knobs it has not ported
+and runs the ones it has."""
 
 import pkgutil
 import subprocess
@@ -57,17 +58,31 @@ def test_device_resolution_has_no_fallback(monkeypatch):
         resolve("tpu")
 
 
-@pytest.mark.parametrize("knob", ["batch_regions", "shard_genome_index", "multihost"])
-def test_runner_refuses_unported_knobs(knob, tmp_path):
+def _tiny_config(tmp_path, **knobs):
     from breakmer_tpu.config import Config
-    from breakmer_tpu_torch.runner import Runner
 
     files = {"t.bed": "chr1\t100\t200\tG\n", "g.fa": ">chr1\nACGT\n", "s.sam": ""}
     for name, text in files.items():
         (tmp_path / name).write_text(text)
-    cfg = Config(targets_bed_file=str(tmp_path / "t.bed"),
-                 reference_fasta=str(tmp_path / "g.fa"),
-                 sample_bam_file=str(tmp_path / "s.sam"), analysis_dir=str(tmp_path / "a"),
-                 device="cpu", **{knob: True})
+    return Config(targets_bed_file=str(tmp_path / "t.bed"),
+                  reference_fasta=str(tmp_path / "g.fa"),
+                  sample_bam_file=str(tmp_path / "s.sam"), analysis_dir=str(tmp_path / "a"),
+                  device="cpu", **knobs)
+
+
+@pytest.mark.parametrize("knob", ["shard_genome_index", "multihost"])
+def test_runner_refuses_unported_knobs(knob, tmp_path):
+    from breakmer_tpu_torch.runner import Runner
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Runner(cfg).setup()
+        Runner(_tiny_config(tmp_path, **{knob: True})).setup()
+
+
+def test_runner_runs_batch_regions(tmp_path):
+    from breakmer_tpu_torch.runner import Runner
+
+    runner = Runner(_tiny_config(tmp_path, batch_regions=True))
+    runner.setup()
+    assert runner.run() == []
+    assert runner.kmer_pipeline is not None
+    assert (tmp_path / "a" / "output").is_dir()
