@@ -4,12 +4,17 @@ A structural-variant caller of the ``ccgd-profile/BreaKmer`` kind
 (Abo et al., NAR 2015), ported from JAX on a TPU to PyTorch on an NVIDIA
 Hopper card. ``breakmer_tpu`` stays beside it as the reference; every
 module here mirrors the module of the same name there and is tested
-against it. This package imports ``torch`` and never ``jax``: it uses
-only the JAX-free leaf modules of ``breakmer_tpu`` (``encode``,
-``config``, ``io``, ``native``, ``utils``) and copies the host modules
-that reach JAX through a package ``__init__``.
+against it. This package imports ``torch`` and never ``jax``, and no
+module of ``breakmer_tpu`` either: the leaf modules it needs (``config``,
+``encode``, ``native``, ``io/``, ``utils/``) are copies here that differ
+from their originals only in their imports.
 
 Layer map:
+  config, encode, native, io/, utils/
+             copies of the JAX package's leaf modules (configuration,
+             base codes, the C++ library's bindings, file formats, meter)
+  testing/   copies of the test fixtures and the planted-SV scenario
+             generator, for chip_smoke.py and the panel bench
   ops/       k-mer engine (torch ops), Smith-Waterman (plain torch version
              and the hand-written CUDA kernel in csrc/)
   parallel/  the fused region step (k-mer subtraction + SW), one device
@@ -20,7 +25,7 @@ Layer map:
   align/     seed index + seed-and-extend realignment + host traceback
   call/      breakpoint classification, support counting, filter stack
   pipeline   per-region pipeline
-  runner     orchestrator (serial path)
+  runner     orchestrator (serial and batched paths)
   cli        entry point: python -m breakmer_tpu_torch.cli run <config>
 """
 

@@ -99,9 +99,7 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.sw_wavefront_launch.restype = i32
-        lib.sw_wavefront_launch.argtypes = [vp, vp] + [i32] * 9 + [vp] * 5
-        lib.sw_wavefront_smem_bytes.restype = ctypes.c_longlong
-        lib.sw_wavefront_smem_bytes.argtypes = [i32, i32]
+        lib.sw_wavefront_launch.argtypes = [vp, vp] + [i32] * 12 + [vp] * 6
         lib.sw_wavefront_error_string.restype = ctypes.c_char_p
         lib.sw_wavefront_error_string.argtypes = [i32]
         lib.sw_ceiling_probe_launch.restype = i32

@@ -17,7 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from breakmer_tpu.encode import encode_seq, revcomp_codes
+from breakmer_tpu_torch.encode import encode_seq, revcomp_codes
 
 
 def _seed_codes(codes: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -220,7 +220,7 @@ class PackedChrom:
 
     @classmethod
     def from_codes(cls, codes: np.ndarray) -> "PackedChrom":
-        from breakmer_tpu.encode import pack_2bit
+        from breakmer_tpu_torch.encode import pack_2bit
 
         codes = np.asarray(codes, dtype=np.int8)
         m = codes >= 4
@@ -238,7 +238,7 @@ class PackedChrom:
                    starts.astype(np.int64), ends.astype(np.int64))
 
     def fetch(self, start: int, end: int) -> np.ndarray:
-        from breakmer_tpu.encode import unpack_2bit
+        from breakmer_tpu_torch.encode import unpack_2bit
 
         start = max(0, int(start))
         end = min(self.length, int(end))

@@ -31,7 +31,7 @@ from breakmer_tpu_torch.align.traceback import (
     split_target_gap_junk,
     traceback_align,
 )
-from breakmer_tpu.encode import pad_tier, revcomp_codes
+from breakmer_tpu_torch.encode import pad_tier, revcomp_codes
 from breakmer_tpu_torch.ops.sw import SWParams, sw_score_batch
 
 
@@ -283,7 +283,7 @@ def realign_contigs(
     disable it when no repeat mask is loaded (margins then stay -1 =
     unknown and the rescue never fires).
     """
-    from breakmer_tpu.utils.meter import METER
+    from breakmer_tpu_torch.utils.meter import METER
 
     if min_seg_score is None:
         min_seg_score = params.match * min_seg_len // 2

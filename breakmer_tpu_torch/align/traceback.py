@@ -537,7 +537,7 @@ def traceback_align(
     if len(q) == 0 or len(t) == 0:
         return Alignment(0, 0, 0, 0, 0, [], 0, 0)
     if use_native:
-        from breakmer_tpu import native
+        from breakmer_tpu_torch import native
 
         res = native.sw_traceback(
             q, t, params.match, params.mismatch,

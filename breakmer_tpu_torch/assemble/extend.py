@@ -41,7 +41,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from breakmer_tpu_torch.assemble.greedy import Contig, ContigRead
-from breakmer_tpu.encode import ReadBatch, decode_seq, encode_seq, revcomp_codes
+from breakmer_tpu_torch.encode import ReadBatch, decode_seq, encode_seq, revcomp_codes
 
 
 def _anchor_hashes(codes: np.ndarray, lengths: np.ndarray, k: int):

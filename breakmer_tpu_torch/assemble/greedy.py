@@ -37,8 +37,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from breakmer_tpu import native as _native
-from breakmer_tpu.encode import ReadBatch, decode_seq
+from breakmer_tpu_torch import native as _native
+from breakmer_tpu_torch.encode import ReadBatch, decode_seq
 from breakmer_tpu_torch.ops import kmer as kmer_ops
 
 

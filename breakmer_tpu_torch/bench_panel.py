@@ -27,12 +27,10 @@ from __future__ import annotations
 import argparse
 import json
 import shutil
-import sys
 import tempfile
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
 CPU_BASELINE = Path(__file__).with_name("bench_panel_cpu_baseline.json")
 
 
@@ -40,11 +38,10 @@ def build_panel(work: Path, n_genes: int, read_step: int, nprocs: int = 1,
                 read_len: int = 100, device: str = "cuda"):
     """The panel of ``bench_panel.build_panel`` under ``work``, and its
     Config on ``device``."""
-    if str(ROOT) not in sys.path:
-        sys.path.insert(0, str(ROOT))
-    from breakmer_tpu.config import Config
-    from breakmer_tpu.io.fasta import write_fasta
-    from tests.fixtures import Haplotype, NovelBlock, RefBlock, SamBuilder, rand_seq
+    from breakmer_tpu_torch.config import Config
+    from breakmer_tpu_torch.io.fasta import write_fasta
+    from breakmer_tpu_torch.testing.fixtures import (Haplotype, NovelBlock, RefBlock,
+                                                     SamBuilder, rand_seq)
 
     span = 1200
     gap = 800
@@ -93,8 +90,8 @@ def run_once(cfg) -> dict:
     the card finished) and what the run counted."""
     import torch
 
-    from breakmer_tpu.utils.meter import METER
     from breakmer_tpu_torch.runner import Runner
+    from breakmer_tpu_torch.utils.meter import METER
 
     t0 = time.perf_counter()
     runner = Runner(type(cfg)(**{**cfg.__dict__}))

@@ -29,7 +29,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 from breakmer_tpu_torch.align.realign import AlignSegment
 from breakmer_tpu_torch.assemble.greedy import Contig
 from breakmer_tpu_torch.call.support import DiscordantPairs, count_split_reads
-from breakmer_tpu.config import Config
+from breakmer_tpu_torch.config import Config
 
 
 @dataclasses.dataclass

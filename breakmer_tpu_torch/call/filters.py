@@ -19,10 +19,10 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 from breakmer_tpu_torch.call.events import SVEvent
-from breakmer_tpu.config import Config
-from breakmer_tpu.io.bed import TargetRegion
-from breakmer_tpu.utils.complexity import contig_complexity
-from breakmer_tpu.utils.rmask import RepeatMask
+from breakmer_tpu_torch.config import Config
+from breakmer_tpu_torch.io.bed import TargetRegion
+from breakmer_tpu_torch.utils.complexity import contig_complexity
+from breakmer_tpu_torch.utils.rmask import RepeatMask
 
 
 def _sr_thresh(cfg: Config, sv_type: str) -> int:

@@ -20,7 +20,7 @@ import sys
 from typing import List, Optional
 
 from breakmer_tpu_torch import __version__
-from breakmer_tpu.config import Config
+from breakmer_tpu_torch.config import Config
 from breakmer_tpu_torch.runner import Runner
 
 
@@ -80,7 +80,7 @@ def run_check() -> int:
     import numpy as np
     import torch
 
-    from breakmer_tpu import native
+    from breakmer_tpu_torch import native
     from breakmer_tpu_torch.device import resolve
 
     print(f"torch {torch.__version__}; CUDA {torch.version.cuda}")

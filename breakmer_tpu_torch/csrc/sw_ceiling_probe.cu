@@ -1,5 +1,8 @@
 // The SW wavefront loop stripped to its per-step exchange, for Hopper
-// (sm_90a): a probe of what bounds csrc/sw_wavefront.cu.
+// (sm_90a): a probe of what bounded the first design of
+// csrc/sw_wavefront.cu (one block a pair, a barrier a diagonal). The
+// "sw_wavefront" below is that design, since replaced by a
+// warp-synchronous wavefront in registers.
 //
 // Replaces tools/sw_ceiling_probe.py::_loop_kernel (launched by
 // stripped). Per row of B rows, four int32 state vectors of Lq lanes
@@ -19,7 +22,7 @@
 // in rotating buffers (H in three, as sw_wavefront's H diagonals; F and
 // the target stream in two each), so each step reads the previous steps'
 // buffers and writes a buffer nobody reads in that step, and one
-// __syncthreads a step orders the sweep, as at sw_wavefront.cu:125. In
+// __syncthreads a step orders the sweep, as that design's did. In
 // rolls3 a thread reads lane i-1, which another thread wrote: the
 // cross-thread exchange that sw_wavefront makes on every diagonal
 // (h1[i-1], f1[i-1], h2[i-1]). rolls0 keeps all of that exchange except

@@ -23,9 +23,9 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 
 from breakmer_tpu_torch.call.support import DiscordantPairs
-from breakmer_tpu.config import Config
-from breakmer_tpu.encode import ReadBatch
-from breakmer_tpu.io.sam import SamRecord
+from breakmer_tpu_torch.config import Config
+from breakmer_tpu_torch.encode import ReadBatch
+from breakmer_tpu_torch.io.sam import SamRecord
 
 
 @dataclasses.dataclass
@@ -185,7 +185,7 @@ def extract_sv_reads_columnar(
     cfg: Config,
 ) -> ExtractResult:
     """Columnar twin of :func:`extract_sv_reads` over the native BAM
-    decode (breakmer_tpu.native.bam_decode_columns): the whole file is
+    decode (breakmer_tpu_torch.native.bam_decode_columns): the whole file is
     decoded once in C++; per-region classification is vectorized numpy
     over the columns. Produces byte-identical ExtractResults to the
     record path (tested), at native ingestion speed.

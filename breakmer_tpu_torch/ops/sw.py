@@ -25,7 +25,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from breakmer_tpu.utils.meter import METER
+from breakmer_tpu_torch.utils.meter import METER
 
 NEG = -(1 << 28)
 

@@ -29,7 +29,7 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from breakmer_tpu.utils.meter import METER
+from breakmer_tpu_torch.utils.meter import METER
 from breakmer_tpu_torch.ops.kmer import _SENT
 from breakmer_tpu_torch.parallel.regions import RegionBatch, pack_region_batches, tier_key
 from breakmer_tpu_torch.parallel.step import _per_region_kmers

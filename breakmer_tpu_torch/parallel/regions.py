@@ -19,7 +19,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from breakmer_tpu.encode import PAD, ReadBatch, pad_tier
+from breakmer_tpu_torch.encode import PAD, ReadBatch, pad_tier
 
 
 @dataclasses.dataclass

@@ -20,16 +20,16 @@ from breakmer_tpu_torch.align.realign import RegionRef
 from breakmer_tpu_torch.assemble.greedy import Contig, assemble
 from breakmer_tpu_torch.call.events import SVEvent, classify_contig
 from breakmer_tpu_torch.call.filters import apply_filters
-from breakmer_tpu.config import Config
-from breakmer_tpu.encode import ReadBatch
+from breakmer_tpu_torch.config import Config
+from breakmer_tpu_torch.encode import ReadBatch
 from breakmer_tpu_torch.extract import ExtractResult, clean_reads, extract_sv_reads
-from breakmer_tpu.io.bed import TargetRegion
-from breakmer_tpu.io.sam import SamRecord
+from breakmer_tpu_torch.io.bed import TargetRegion
+from breakmer_tpu_torch.io.sam import SamRecord
 from breakmer_tpu_torch.ops.kmer import sample_only_kmers
 from breakmer_tpu_torch.ops.sw import SWParams
-from breakmer_tpu.utils.logging import get_logger
-from breakmer_tpu.utils.meter import METER
-from breakmer_tpu.utils.rmask import RepeatMask
+from breakmer_tpu_torch.utils.logging import get_logger
+from breakmer_tpu_torch.utils.meter import METER
+from breakmer_tpu_torch.utils.rmask import RepeatMask
 
 log = get_logger("pipeline")
 
@@ -296,7 +296,7 @@ class TargetPipeline:
         cfg = self.cfg
         if not ev.junction_q:
             return None
-        from breakmer_tpu.encode import encode_seq
+        from breakmer_tpu_torch.encode import encode_seq
         from breakmer_tpu_torch.ops.kmer import novel_kmer_normal_support
 
         ref_table, normal_table = tables
@@ -330,7 +330,7 @@ class TargetPipeline:
         self, window: str, n_in: int, n_novel: int
     ) -> Optional[str]:
         from breakmer_tpu_torch.align.traceback import traceback_align
-        from breakmer_tpu.encode import encode_seq, revcomp_codes
+        from breakmer_tpu_torch.encode import encode_seq, revcomp_codes
 
         cfg = self.cfg
         normal = self.normal_batch
@@ -412,7 +412,7 @@ class TargetPipeline:
 
     def resolve_sv(self) -> RegionResult:
         from breakmer_tpu_torch.align.realign import realign_contigs
-        from breakmer_tpu.encode import encode_seq
+        from breakmer_tpu_torch.encode import encode_seq
 
         contigs = self.assemble_contigs()
         if not contigs:

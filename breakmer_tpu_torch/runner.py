@@ -32,16 +32,16 @@ import numpy as np
 from breakmer_tpu_torch.align.index import GenomeIndex
 from breakmer_tpu_torch.align.realign import RegionRef
 from breakmer_tpu_torch.call.events import SVEvent
-from breakmer_tpu.config import Config
-from breakmer_tpu.encode import ReadBatch
-from breakmer_tpu.io.bed import TargetRegion, read_targets_bed
-from breakmer_tpu.io.fasta import FastaIndex
-from breakmer_tpu.io.bam import read_alignments
+from breakmer_tpu_torch.config import Config
+from breakmer_tpu_torch.encode import ReadBatch
+from breakmer_tpu_torch.io.bed import TargetRegion, read_targets_bed
+from breakmer_tpu_torch.io.fasta import FastaIndex
+from breakmer_tpu_torch.io.bam import read_alignments
 from breakmer_tpu_torch.pipeline import RegionResult, TargetPipeline
 from breakmer_tpu_torch.report import event_row, write_svs_rows
-from breakmer_tpu.utils.logging import get_logger, setup_logger
-from breakmer_tpu.utils.meter import METER
-from breakmer_tpu.utils.rmask import RepeatMask
+from breakmer_tpu_torch.utils.logging import get_logger, setup_logger
+from breakmer_tpu_torch.utils.meter import METER
+from breakmer_tpu_torch.utils.rmask import RepeatMask
 
 log = get_logger("runner")
 
@@ -93,7 +93,7 @@ class Runner:
         if str(cfg.reference_fasta).endswith(".2bit"):
             # UCSC .2bit references accepted directly (migration compat
             # with the reference's faToTwoBit artifacts)
-            from breakmer_tpu.io.twobit import TwoBitReader
+            from breakmer_tpu_torch.io.twobit import TwoBitReader
 
             self.fasta = TwoBitReader(cfg.reference_fasta)
         else:
@@ -214,7 +214,7 @@ class Runner:
             use = bool(cfg.preload_alignments)
             path = str(cfg.sample_bam_file)
             if use and cfg.preload_max_mb is not None and path.endswith(".bam"):
-                from breakmer_tpu.io.bam import find_index
+                from breakmer_tpu_torch.io.bam import find_index
 
                 size_mb = Path(path).stat().st_size / 2**20
                 if size_mb > cfg.preload_max_mb:
@@ -248,14 +248,14 @@ class Runner:
         is_sam = path.endswith(".sam")
         if not (self._preload_effective() and (is_bam or is_sam)):
             return False
-        from breakmer_tpu import native
+        from breakmer_tpu_torch import native
 
         if not native.available():
             return False
         if self._native_cols is None:
             t0 = time.time()
             if is_bam:
-                from breakmer_tpu.io.bam import BamReader
+                from breakmer_tpu_torch.io.bam import BamReader
 
                 with METER.stage("bam_decode"):
                     reader = BamReader(path)
@@ -305,7 +305,7 @@ class Runner:
         cfg = self.cfg
         if not self._preload_effective():
             bam = str(cfg.sample_bam_file)
-            from breakmer_tpu.io.bam import BamIndexedReader, find_index
+            from breakmer_tpu_torch.io.bam import BamIndexedReader, find_index
 
             if bam.endswith(".bam") and find_index(bam) is not None:
                 if self._indexed_reader is None:
@@ -505,7 +505,7 @@ class Runner:
     # -- per-target intermediates (reference keeps these as the de-facto
     # debugging fixtures: sv fastq, kmer dumps, contig fastas — SURVEY.md §4)
     def _write_intermediates(self, name: str, pipe: TargetPipeline, result) -> None:
-        from breakmer_tpu.io.fastq import write_fastq
+        from breakmer_tpu_torch.io.fastq import write_fastq
         from breakmer_tpu_torch.ops.kmer import kmer_to_str
 
         base = Path(self.cfg.analysis_dir) / "targets" / name
@@ -522,7 +522,7 @@ class Runner:
                 for v, c in zip(pipe.kmer_values, pipe.kmer_counts):
                     fh.write(f"{kmer_to_str(int(v), k)}\t{int(c)}\n")
         if result.contigs:
-            from breakmer_tpu.io.fasta import write_fasta
+            from breakmer_tpu_torch.io.fasta import write_fasta
 
             write_fasta(
                 base / "contigs" / "contigs.fa",
@@ -724,7 +724,7 @@ class Runner:
         # phase B/C overlap: assemble each batch's regions as its fetch
         # lands while later batches still run on device; then realign
         # EVERY contig of the panel in lockstep batched device launches
-        from breakmer_tpu.encode import encode_seq
+        from breakmer_tpu_torch.encode import encode_seq
         from breakmer_tpu_torch.align.realign import realign_contigs
 
         t0c = time.time()

@@ -58,3 +58,27 @@ def device_us(fn, n: int = 50) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()) / n
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """Device time of one fn() call in ms, without the host's launch path:
+    the card first sleeps long enough for the host to queue ``n`` calls,
+    and CUDA events around the ``n`` queued calls give their time on the
+    device back to back (memsets and copies of fn() included)."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((2 * n * host_s + 2e-3) * 2e9))  # cycles at ~2 GHz
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n

@@ -11,9 +11,12 @@ shape 512 x (256 x 512) and prints one JSON line:
 
     python -m breakmer_tpu_torch.tools.sw_ceiling_probe
 
-``roll_bound_fraction`` = rolls3 / full: the share of the SW kernel's
-time that its per-diagonal exchange (shared-memory round trip and
-barrier a step) sets. See the note in the .cu for what rolls0 keeps.
+``roll_bound_fraction`` = rolls3 / full: the probe's loop against the
+production kernel's time. The probe strips the first design of the SW
+kernel (one block a pair, a shared-memory round trip and a barrier a
+diagonal), so it measured that design's skeleton; against the
+warp-synchronous kernel, which has neither, it reads above 1. See the
+note in the .cu for what rolls0 keeps.
 """
 
 from __future__ import annotations

@@ -8,7 +8,10 @@ phase's wall time is printed):
   2. build the CUDA kernels from csrc/ (one nvcc a source, in parallel);
   3. the SW kernel against the plain torch version on the card, bit-exact
      at the shapes realign produces, with no_n off and on, ~1% N and
-     custom scoring; median of 5 CUDA-event timings of each;
+     custom scoring (one set past the packed row key's range), at the
+     launch plan's rows a lane and at each one forced, packed and
+     unpacked; median of 5 CUDA-event timings of each, with GCUPS, the
+     bound and the share of it the kernel reaches;
   4. the k-mer engine on the card against the CPU (2,000 x 150 bp reads,
      3 kb region, matched normal);
   5. the serial slice on the card (python -m breakmer_tpu_torch.cli run,
@@ -17,14 +20,17 @@ phase's wall time is printed):
   6. the slice at panel scale: a 100-gene errored panel with a matched
      normal, on the card and then on the CPU; svs.out and the VCF must be
      byte-identical, no region may fail, and every SW batch of the card
-     run must have launched the kernel;
+     run must have launched the kernel; a second card run records the SW
+     launches by shape, each replayed for its kernel time beside its
+     bound (the timed run records nothing);
   7. the probe kernels against their plain versions on the card, exact:
      the stripped SW loop in both forms at steps 1, 7, 255 and the
      default, every int16 op of both int16 probes, the running max;
   8. the batched panel path on the same 100-gene panel (batch_regions,
      32 regions a packed k-mer launch) on the card, nprocs 1 (cold, then
      warm) and 4: svs.out and the VCF byte-identical to phase 6's serial
-     output, no region error, every SW batch launched the kernel;
+     output, no region error, every SW batch launched the kernel; then a
+     recorded warm run gives the SW launches by shape as in phase 6;
   9. the k-mer batch step on the card against the CPU, exact, full and
      packed, at 32 regions of 512 reads with a matched normal; both
      timed with their fetch;
@@ -35,9 +41,17 @@ phase's wall time is printed):
      breakmer_tpu_torch.tools, then python -m
      breakmer_tpu_torch.bench_panel; each probe kernel must have
      launched.
-The last two lines are the kernel table and
+The last two lines are the kernel table (with each kernel's bound and
+the time of one PyTorch call computing the same function, null where
+there is none) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Imports nothing of JAX.
+Imports nothing of JAX, of the JAX package or of the tests.
+
+The bound of a kernel is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its operations over the
+card's peak for their type: SMs * 64 int32 lanes * the SM's maximum clock
+(``nvidia-smi --query-gpu=clocks.max.sm``), twice that for int16 ops
+packed two to a lane.
 """
 
 from __future__ import annotations
@@ -69,6 +83,36 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SW_OPS = 7  # integer-pipe operations a cell (csrc/sw_wavefront.cu's note)
+_PEAK = {}
+
+
+def int32_ops_per_s() -> float:
+    """SMs * 64 int32 lanes * the SM's maximum clock (nvidia-smi)."""
+    if not _PEAK:
+        import subprocess
+
+        mhz = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _PEAK.update(sms=sms, mhz=float(mhz), ops=sms * 64 * float(mhz) * 1e6)
+    return _PEAK["ops"]
+
+
+def bound(nbytes: float, int32_ops: float = 0.0, int16_ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak for their type."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = (int32_ops + int16_ops / 2) / int32_ops_per_s() * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+
+
+def sw_bound(B, Lq, Lt):
+    return bound(B * (Lq + Lt) + 12 * B, int32_ops=B * Lq * Lt * SW_OPS)
+
+
 def sw_inputs(rng, B, Lq, Lt, n_rate=0.0):
     """Random codes with exact copies of the query planted in every third
     target and a ragged trailing pad; ``n_rate`` adds mid-sequence N."""
@@ -88,38 +132,137 @@ def sw_inputs(rng, B, Lq, Lt, n_rate=0.0):
     return q, t
 
 
+def sw_max_err(ref, got) -> int:
+    return max(int((a.long() - b.long()).abs().max()) for a, b in zip(ref, got))
+
+
 def phase_sw(dev, card):
     from breakmer_tpu_torch.ops import sw_cuda
     from breakmer_tpu_torch.ops.sw import SWParams, sw_score
-    from breakmer_tpu_torch.timing import cuda_ms
+    from breakmer_tpu_torch.timing import cuda_ms, queued_ms
 
     rng = np.random.default_rng(2024)
     max_err = 0
     rows = []
+    int32_ops_per_s()
+    print(f"  int32 peak {_PEAK['sms']} SMs x 64 x {_PEAK['mhz']:.0f} MHz = "
+          f"{_PEAK['ops'] / 1e12:.3f} T ops/s; SW bound at {SW_OPS} ops a cell", flush=True)
     for B, Lq, Lt in SW_SHAPES:
         cases = [("planted", 0.0, SWParams(), (False, True)),
                  ("1% N", 0.01, SWParams(), (False,)),
-                 ("params 3,2,4,2", 0.0, SWParams(3, 2, 4, 2), (False, True))]
+                 ("params 3,2,4,2", 0.0, SWParams(3, 2, 4, 2), (False, True)),
+                 # the plan keeps score and column apart where 16 min(Lq, Lt) >= 2^15
+                 ("params 16,12,20,8", 0.0, SWParams(16, 12, 20, 8), (False, True))]
         for label, n_rate, params, no_n_forms in cases:
             q, t = (torch.from_numpy(a).to(dev) for a in sw_inputs(rng, B, Lq, Lt, n_rate))
             ref = sw_score(q, t, params)
             for no_n in no_n_forms:
                 got = sw_cuda.sw_score_cuda(q, t, params, no_n=no_n)
                 torch.cuda.synchronize()
-                err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(ref, got))
+                err = sw_max_err(ref, got)
                 max_err = max(max_err, err)
                 check(err == 0, f"SW kernel != plain at {(B, Lq, Lt)} {label} no_n={no_n}")
         q, t = (torch.from_numpy(a).to(dev) for a in sw_inputs(rng, B, Lq, Lt))
+        ref = sw_score(q, t)
+        by_r = {}  # device ms at each rows-a-lane, after an exact check
+        for R in sw_cuda.ROWS_PER_LANE:
+            for unpacked in (False, True):
+                err = sw_max_err(ref, sw_cuda.sw_score_cuda(q, t, no_n=True, rows_per_lane=R,
+                                                            unpacked=unpacked))
+                max_err = max(max_err, err)
+                check(err == 0, f"SW kernel (R={R}, unpacked={unpacked}) != plain at "
+                                f"{(B, Lq, Lt)}")
+            by_r[R] = queued_ms(lambda: sw_cuda.sw_score_cuda(
+                q, t, no_n=True, rows_per_lane=R), n=10)
+        plan = sw_cuda.launch_plan(B, Lq, Lt, sms=_PEAK["sms"])
         k_ms = cuda_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True))
+        d_ms = queued_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True), n=10)
         p_ms = cuda_ms(lambda: sw_score(q, t))
         cells = B * Lq * Lt
-        rows.append(dict(shape=[B, Lq, Lt], ms=k_ms, plain_ms=p_ms,
+        b_ms, b_by = sw_bound(B, Lq, Lt)
+        rows.append(dict(shape=[B, Lq, Lt], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, rows_per_lane=plan.rows_per_lane,
+                         strips=plan.strips, device_ms_by_rows_per_lane=by_r,
                          gcups=cells / k_ms / 1e6, plain_gcups=cells / p_ms / 1e6))
-        print(f"  SW {B}x{Lq}x{Lt}: exact; kernel {k_ms:.4f} ms "
-              f"({cells / k_ms / 1e6:.2f} GCUPS), plain {p_ms:.2f} ms "
-              f"({cells / p_ms / 1e6:.4f} GCUPS) [{card}]", flush=True)
+        print(f"  SW {B}x{Lq}x{Lt}: exact; kernel {k_ms:.4f} ms a call, {d_ms:.4f} ms "
+              f"on the device ({cells / k_ms / 1e6:.2f} GCUPS a call; R={plan.rows_per_lane}, "
+              f"{plan.strips} strips, {plan.warps} warps), bound {b_ms:.4f} ms "
+              f"({b_by}), {b_ms / d_ms:.1%} of the bound on the device; device ms by R "
+              + ", ".join(f"{R}: {ms:.4f}" for R, ms in by_r.items())
+              + f"; plain {p_ms:.2f} ms ({cells / p_ms / 1e6:.4f} GCUPS) [{card}]",
+              flush=True)
+    sw_step_costs(dev, card)
     torch.cuda.synchronize()
     return rows, max_err
+
+
+def sw_step_costs(dev, card):
+    """The table behind ops/sw_cuda.py's STEP_CYCLES (the lag included):
+    clocks a step of one strip of 32 R x 4096 with 1, 2 and 4 warps a SM
+    partition, and the steps one pair of 8 strips over 2048 columns takes
+    past one strip, a strip (device time of queued launches)."""
+    from breakmer_tpu_torch.ops import sw_cuda
+    from breakmer_tpu_torch.timing import queued_ms
+
+    rng = np.random.default_rng(5)
+    hz = _PEAK["mhz"] * 1e6
+    codes = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.integers(0, 4, shape).astype(np.int8)).to(dev)
+    for R in sw_cuda.ROWS_PER_LANE:
+        cells = []
+        for w in (1, 2, 4):
+            B, Lt = 4 * _PEAK["sms"] * w, 4096
+            q, t = codes(B, 32 * R), codes(B, Lt)
+            ms = queued_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True, rows_per_lane=R), 5)
+            cells.append(f"{w}/partition {ms * 1e-3 * hz / (Lt + 31) / w:.0f}")
+        steps = {}
+        for S in (1, 8):
+            q, t = codes(1, 32 * R * S), codes(1, 2048)
+            ms = queued_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True, rows_per_lane=R), 5)
+            steps[S] = ms * 1e-3 * hz
+        lag = (steps[8] / steps[1] - 1) * (2048 + 31) / 7
+        print(f"  SW step clocks a warp, R={R}: " + ", ".join(cells)
+              + f"; strip lag {lag:.0f} steps [{card}]", flush=True)
+
+
+class SWRecorder:
+    """While open, records the inputs of every ``sw_score_cuda`` call (the
+    main path's SW launches; the wrapper still counts its own launches);
+    ``by_shape`` then replays each call for its device time (queued CUDA
+    events, ``timing.queued_ms``), summed by (B, Lq, Lt)."""
+
+    def __enter__(self):
+        from breakmer_tpu_torch.ops import sw_cuda
+
+        self.mod, self.orig, self.calls = sw_cuda, sw_cuda.sw_score_cuda, []
+
+        def record(q, t, *args, **kwargs):
+            self.calls.append((q.clone(), t.clone(), args, kwargs))
+            return self.orig(q, t, *args, **kwargs)
+
+        sw_cuda.sw_score_cuda = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.sw_score_cuda = self.orig
+
+    def by_shape(self, label, card):
+        from breakmer_tpu_torch.timing import queued_ms
+
+        before = self.mod.LAUNCHES
+        out = {}
+        for q, t, args, kwargs in self.calls:
+            shape = (q.shape[0], q.shape[1], t.shape[1])
+            row = out.setdefault(shape, dict(launches=0, ms=0.0, bound_ms=0.0))
+            row["launches"] += 1
+            row["ms"] += queued_ms(lambda: self.orig(q, t, *args, **kwargs), n=3)
+            row["bound_ms"] += sw_bound(*shape)[0]
+        self.mod.LAUNCHES = before  # replays are no launches of the main path
+        for (B, Lq, Lt), r in sorted(out.items()):
+            print(f"  {label} SW launches {B}x{Lq}x{Lt}: {r['launches']}, kernel "
+                  f"{r['ms']:.4f} ms summed, bound {r['bound_ms']:.4f} ms, launches x "
+                  f"(time - bound) {r['ms'] - r['bound_ms']:.4f} ms [{card}]", flush=True)
+        return [dict(shape=list(k), **v) for k, v in sorted(out.items())]
 
 
 def phase_kmer(dev, card):
@@ -158,7 +301,7 @@ def phase_kmer(dev, card):
 
 def run_panel(cfg_kwargs, out: Path, device: str):
     """Drive the port as ``python -m breakmer_tpu_torch.cli run`` does."""
-    from breakmer_tpu.config import Config
+    from breakmer_tpu_torch.config import Config
     from breakmer_tpu_torch.runner import Runner
 
     cfg = Config(**{**cfg_kwargs, "analysis_dir": str(out), "device": device,
@@ -185,7 +328,7 @@ def checker_results(checks, events):
 
 
 def phase_slice_exact(card):
-    from tests.scenarios import build_scenario
+    from breakmer_tpu_torch.testing.scenarios import build_scenario
 
     for seed, kinds in CI_KINDS.items():
         work = WORK / f"seed{seed}"
@@ -205,7 +348,7 @@ def phase_slice_exact(card):
 def build_panel100():
     """The 100-gene errored panel with a matched normal and a two-SV gene
     (scenario seed 5, deeper coverage): (cfg_kwargs, checks, work)."""
-    from tests.scenarios import build_scenario
+    from breakmer_tpu_torch.testing.scenarios import build_scenario
 
     work = WORK / "panel100"
     work.mkdir(parents=True)
@@ -217,7 +360,7 @@ def build_panel100():
 
 
 def phase_slice_scale(card, panel):
-    from breakmer_tpu.utils.meter import METER
+    from breakmer_tpu_torch.utils.meter import METER
     from breakmer_tpu_torch.ops import sw_cuda
 
     cfg_kwargs, checks, work = panel
@@ -251,15 +394,20 @@ def phase_slice_scale(card, panel):
         f"{k}: {h}/{n}" for k, (h, n) in sorted(recall.items(), key=str)), flush=True)
     stages = {k: round(v, 3) for k, v in metrics["stage_s"].items()}
     print(f"  panel100 CUDA stage seconds: {stages}", flush=True)
+    with SWRecorder() as rec:  # an untimed run for the launches by shape
+        run_panel(cfg_kwargs, work / "cuda_recorded", "cuda")
+    check(len(rec.calls) == launches, "the recorded serial run launched SW differently")
+    by_shape = rec.by_shape("panel100 serial", card)
     torch.cuda.synchronize()
-    return launches
+    return launches, by_shape
 
 
 def phase_batched_panel(card, panel, serial_sw_batches):
     """The batched path on the 100-gene panel: nprocs 1 cold, nprocs 1
     warm (timed), nprocs 4; each byte-identical to phase 6's serial CUDA
-    output. Returns the warm run's SW kernel launches."""
-    from breakmer_tpu.utils.meter import METER
+    output. Returns the warm run's SW kernel launches and its SW launches
+    by shape."""
+    from breakmer_tpu_torch.utils.meter import METER
     from breakmer_tpu_torch.ops import sw_cuda
 
     cfg_kwargs, _, work = panel
@@ -291,8 +439,13 @@ def phase_batched_panel(card, panel, serial_sw_batches):
               f"svs.out and VCF == serial [{card}]", flush=True)
         if label == "warm":
             warm_launches = launches
+    kw = {**cfg_kwargs, "batch_regions": True, "nprocs": 1}
+    with SWRecorder() as rec:  # an untimed warm run for the launches by shape
+        run_panel(kw, work / "batched_recorded", "cuda")
+    check(len(rec.calls) == warm_launches, "the recorded batched run launched SW differently")
+    by_shape = rec.by_shape("batched panel100 warm", card)
     torch.cuda.synchronize()
-    return warm_launches
+    return warm_launches, by_shape
 
 
 def phase_kmer_batch_step(dev, card):
@@ -327,10 +480,27 @@ def phase_kmer_batch_step(dev, card):
               f"{ms:.4f} ms, fetch {nbytes} bytes [{card}]", flush=True)
 
 
+# int16 operations an element of the fused mini-recurrence: substitution 2,
+# clamp 1, first E 3, then three rounds of E 3 and H 3 (the roll moves data)
+MINI_OPS = 24
+I16_LIBRARY = {  # int16 probe op: the one torch call computing the same function
+    "i16 maximum": torch.maximum, "i16 minimum": torch.minimum, "i16 add": torch.add,
+    "i16 sub const": lambda a: torch.sub(a, 6), "i16 mul": torch.mul,
+    "i32->i16 astype": lambda a: a.to(torch.int16),
+    "i16->i32 astype": lambda a: a.to(torch.int32),
+    "i16 compare-select": torch.maximum, "i16 roll (lanes)": lambda a: torch.roll(a, 1, 1),
+    "i16 sub tensor": torch.sub, "i16 ashr 15": lambda a: torch.bitwise_right_shift(a, 15),
+    "i16 shl 1": lambda a: torch.bitwise_left_shift(a, 1),
+    "i16 add splat-int16": lambda a: torch.add(a, 6), "i16 add py-int": lambda a: torch.add(a, 6),
+    "i16 add full-array const": lambda a: torch.add(a, 6), "i16 emulated max": torch.maximum,
+}
+
+
 def phase_probes(dev, card):
-    """Each probe kernel against its plain version at the probes' shapes:
-    (kernel rows for the table, keyed by kernel name)."""
-    from breakmer_tpu_torch.timing import cuda_ms
+    """Each probe kernel against its plain version at the probes' shapes,
+    with its bound and, where one torch call computes the same function,
+    that call's time: (kernel rows for the table, keyed by kernel name)."""
+    from breakmer_tpu_torch.timing import cuda_ms, device_us
     from breakmer_tpu_torch.tools import probe_mosaic_cummax as cm
     from breakmer_tpu_torch.tools import probe_swar_i16 as i16
     from breakmer_tpu_torch.tools import probe_swar_i16b as i16b
@@ -339,10 +509,14 @@ def phase_probes(dev, card):
     rows = {}
     ceil.check(dev)  # raises on any difference
     q, t = ceil.inputs(dev)
-    rows["sw_ceiling_probe"] = dict(
+    steps = ceil.default_steps(ceil.LQ, ceil.LT)
+    rows["sw_ceiling_probe"] = dict(  # rolls3: three max a lane a step
         max_abs_err=0, shape=[ceil.B, ceil.LQ, ceil.LT],
         ms=cuda_ms(lambda: ceil.stripped(q, t, True)),
-        plain_ms=cuda_ms(lambda: ceil.stripped_plain(q, t, True)))
+        plain_ms=cuda_ms(lambda: ceil.stripped_plain(q, t, True)),
+        library_ms=None,
+        bound=bound(ceil.B * (ceil.LQ + ceil.LT) + 4 * ceil.B * ceil.LQ,
+                    int32_ops=3 * ceil.B * ceil.LQ * steps))
     print(f"  ceiling probe: kernel == plain, both forms, steps 1/7/255/"
           f"{ceil.default_steps(ceil.LQ, ceil.LT)}; rolls3 kernel "
           f"{rows['sw_ceiling_probe']['ms']:.4f} ms, plain "
@@ -352,24 +526,43 @@ def phase_probes(dev, card):
         bad = [r["name"] for r in ops if not r["exact"]]
         check(not bad, f"{name}: kernel != plain for {bad}")
         mini = next(r for r in ops if r["name"].startswith("fused mini"))
+        n = i16.SHAPE[0] * i16.SHAPE[1]
         rows[name] = dict(max_abs_err=max(r["max_abs_err"] for r in ops),
                           shape=list(i16.SHAPE), op=mini["name"],
                           ms=mini["us"] / 1e3, plain_ms=mini["plain_us"] / 1e3,
                           device_ms=mini["device_us"] / 1e3,
-                          plain_device_ms=mini["plain_device_us"] / 1e3)
+                          plain_device_ms=mini["plain_device_us"] / 1e3,
+                          library_ms=None,  # no one torch call runs the recurrence
+                          bound=bound(2 * 4 * n + 2 * n, int16_ops=MINI_OPS * n))
+        x = {k: torch.from_numpy(v).to(dev) for k, v in mod.inputs().items()}
         for r in ops:
+            lib = I16_LIBRARY.get(r["name"])
+            lib_txt = "no one torch call"
+            if lib is not None:
+                args = [x[a] for a in next(op for op in mod.OPS if op.name == r["name"]).args]
+                lib_txt = (f"library {cuda_ms(lambda: lib(*args), reps=20) * 1e3:.2f} us "
+                           f"({device_us(lambda: lib(*args)):.2f} device)")
             print(f"  {name} {r['name']:32s} exact  kernel {r['us']:.2f} us "
                   f"({r['device_us']:.2f} device)  plain {r['plain_us']:.2f} us "
-                  f"({r['plain_device_us']:.2f} device)", flush=True)
+                  f"({r['plain_device_us']:.2f} device)  {lib_txt}", flush=True)
     r = cm.measure(dev)
     check(r["exact"], "cummax kernel != plain")
+    x = torch.from_numpy(cm.inputs()).to(dev)
+    lib_us = cuda_ms(lambda: torch.cummax(x, dim=-1), reps=20) * 1e3
+    lib_dev = device_us(lambda: torch.cummax(x, dim=-1))
+    n = cm.SHAPE[0] * cm.SHAPE[1]
     rows["probe_cummax"] = dict(max_abs_err=r["max_abs_err"], shape=list(cm.SHAPE),
                                 ms=r["us"] / 1e3, plain_ms=r["plain_us"] / 1e3,
                                 device_ms=r["device_us"] / 1e3,
-                                plain_device_ms=r["plain_device_us"] / 1e3)
+                                plain_device_ms=r["plain_device_us"] / 1e3,
+                                library_ms=lib_us / 1e3, library_device_ms=lib_dev / 1e3,
+                                bound=bound(8 * n, int32_ops=n))
     print(f"  cummax {cm.SHAPE}: exact; kernel {r['us']:.2f} us "
           f"({r['device_us']:.2f} device), plain {r['plain_us']:.2f} us "
-          f"({r['plain_device_us']:.2f} device) [{card}]", flush=True)
+          f"({r['plain_device_us']:.2f} device), torch.cummax {lib_us:.2f} us "
+          f"({lib_dev:.2f} device) [{card}]", flush=True)
+    for name, row in rows.items():
+        print(f"  {name}: bound {row['bound'][0]:.3g} ms ({row['bound'][1]})", flush=True)
     torch.cuda.synchronize()
     return rows
 
@@ -495,9 +688,9 @@ def main() -> int:
     timed("kmer", phase_kmer, dev, card)
     timed("slice seeds 1, 7", phase_slice_exact, card)
     panel = build_panel100()
-    sw_launches = timed("panel100", phase_slice_scale, card, panel)
-    batched_launches = timed("batched panel100", phase_batched_panel, card, panel,
-                             sw_launches)
+    sw_launches, serial_by_shape = timed("panel100", phase_slice_scale, card, panel)
+    batched_launches, batched_by_shape = timed("batched panel100", phase_batched_panel,
+                                               card, panel, sw_launches)
     timed("kmer batch step", phase_kmer_batch_step, dev, card)
     rows = timed("probe kernels", phase_probes, dev, card)
     timed("region step", phase_region_step, dev, card)
@@ -505,8 +698,12 @@ def main() -> int:
 
     head = next(r for r in sw_rows if tuple(r["shape"]) == HEADLINE)
     rows["sw_wavefront"] = dict(max_abs_err=sw_err, shape=head["shape"], ms=head["ms"],
-                                plain_ms=head["plain_ms"],
-                                batched_path_launches=batched_launches)
+                                device_ms=head["device_ms"],
+                                plain_ms=head["plain_ms"], library_ms=None,
+                                bound=(head["bound_ms"], head["bound_by"]),
+                                batched_path_launches=batched_launches,
+                                main_path_by_shape=serial_by_shape,
+                                batched_path_by_shape=batched_by_shape)
     launches["sw_wavefront"] = sw_launches
     table = []
     for name, (source, replaces) in KERNELS.items():
@@ -514,9 +711,13 @@ def main() -> int:
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[name],
                       "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                      "plain_ms": row["plain_ms"], "shape": row["shape"],
+                      "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
+                      "bound_by": row["bound"][1], "library_ms": row["library_ms"],
+                      "shape": row["shape"],
                       **{k: row[k] for k in ("op", "device_ms", "plain_device_ms",
-                                             "batched_path_launches") if k in row}})
+                                             "library_device_ms", "batched_path_launches",
+                                             "main_path_by_shape", "batched_path_by_shape")
+                         if k in row}})
     print(card_line())
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

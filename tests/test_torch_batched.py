@@ -13,10 +13,12 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from breakmer_tpu.encode import PAD, ReadBatch, encode_seq
+from breakmer_tpu import encode as jenc
 from breakmer_tpu.parallel import kmer_batch as jkb
 from breakmer_tpu.parallel import regions as jreg
 from breakmer_tpu.parallel.step import _per_region_kmers as jax_per_region_kmers
+from breakmer_tpu_torch import encode as tenc
+from breakmer_tpu_torch.encode import PAD
 from breakmer_tpu_torch.parallel import kmer_batch as tkb
 from breakmer_tpu_torch.parallel import regions as treg
 from breakmer_tpu_torch.parallel.step import _per_region_kmers
@@ -162,7 +164,10 @@ def test_compact_outputs_match_jax(case):
 
 # ---------------------------------------------------------- region packing
 
-def _regions(case):
+def _regions(case, enc):
+    """The regions of ``case``, their reads built with ``enc``'s ReadBatch
+    and encode_seq (the JAX package's or the port's)."""
+    ReadBatch, encode_seq = enc.ReadBatch, enc.encode_seq
     if case == "ragged":  # test_pack_region_batches's regions
         return [(f"G{i}", ReadBatch.from_seqs([rand_seq(i * 10 + j, 80)
                                                for j in range(10 + i)]),
@@ -185,8 +190,8 @@ def _regions(case):
 
 @pytest.mark.parametrize("case,rpb", [("ragged", 4), ("tiers", 8), ("normal", 3)])
 def test_pack_region_batches_match_jax(case, rpb):
-    regions = _regions(case)
-    want = jreg.pack_region_batches(regions, regions_per_batch=rpb)
+    regions, jax_regions = _regions(case, tenc), _regions(case, jenc)
+    want = jreg.pack_region_batches(jax_regions, regions_per_batch=rpb)
     got = treg.pack_region_batches(regions, regions_per_batch=rpb)
     assert len(got) == len(want) > 0
     for a, b in zip(want, got):
@@ -199,19 +204,21 @@ def test_pack_region_batches_match_jax(case, rpb):
                 assert x.dtype == y.dtype, field
                 np.testing.assert_array_equal(x, y, err_msg=field)
     with_normal = case == "normal"
-    for r in regions:
-        normal = r[3] if with_normal else None
+    for r, jr in zip(regions, jax_regions):
+        normal, jax_normal = (r[3], jr[3]) if with_normal else (None, None)
         assert (treg.tier_key(r[1], r[2], normal, with_normal)
-                == jreg.tier_key(r[1], r[2], normal, with_normal))
+                == jreg.tier_key(jr[1], jr[2], jax_normal, with_normal))
     if case == "tiers":
         assert len({b.shape_key for b in got}) == 2
 
 
 # ------------------------------------------------------ the k-mer batch step
 
-def _kmer_regions():
+def _kmer_regions(enc=tenc):
     """Regions whose reads carry a novel insertion (sample-only k-mers at
-    counts >= 2); a matched normal covering one of the insertions."""
+    counts >= 2); a matched normal covering one of the insertions. Built
+    with ``enc``'s ReadBatch and encode_seq."""
+    ReadBatch, encode_seq = enc.ReadBatch, enc.encode_seq
     out = []
     for i in range(5):
         ref = rand_seq(300 + i, 900 + 150 * i)
@@ -234,19 +241,19 @@ def _assert_same_kmers(want, got):
 
 @pytest.mark.parametrize("form", ["pipeline", "batches", "overflow"])
 def test_kmer_batch_matches_jax(form, monkeypatch):
-    regions = _kmer_regions()
+    regions, jax_regions = _kmer_regions(), _kmer_regions(jenc)
     k, rpb = 15, 2
     if form == "overflow":
         monkeypatch.setattr(tkb, "_PACK_SLOTS_PER_REGION", 1)
     if form == "batches":
-        want = jkb.run_kmer_batches(jreg.pack_region_batches(regions, rpb), k)
+        want = jkb.run_kmer_batches(jreg.pack_region_batches(jax_regions, rpb), k)
         got = tkb.run_kmer_batches(treg.pack_region_batches(regions, rpb), k,
                                    device="cpu")
     else:
         jax_kb = jkb.KmerBatchPipeline(k, regions_per_batch=rpb)
         kb = tkb.KmerBatchPipeline(k, regions_per_batch=rpb, device="cpu")
-        for r in regions:
-            jax_kb.add(*r)
+        for jr, r in zip(jax_regions, regions):
+            jax_kb.add(*jr)
             kb.add(*r)
         want, got = jax_kb.finish(), kb.finish()
         assert kb.dispatched == 3
@@ -272,8 +279,9 @@ def test_kmer_batch_sharded_form_is_not_ported(entry):
 
 # ------------------------------------------- the batched runner end to end
 
-from breakmer_tpu.config import Config  # noqa: E402
+from breakmer_tpu.config import Config as JaxConfig  # noqa: E402
 from breakmer_tpu.runner import Runner as JaxRunner  # noqa: E402
+from breakmer_tpu_torch.config import Config as TorchConfig  # noqa: E402
 from breakmer_tpu_torch.runner import Runner as TorchRunner  # noqa: E402
 from tests.scenarios import build_scenario  # noqa: E402
 from tests.test_property_e2e import _CI_KINDS  # noqa: E402
@@ -298,9 +306,11 @@ def panel_run(tmp_path_factory):
                 scenarios[seed] = (work, cfg_kwargs, checks)
             work, cfg_kwargs, _ = scenarios[seed]
             out = work / f"{package}_{len(done)}"
-            cfg = Config(**{**cfg_kwargs, **knobs, "analysis_dir": str(out),
+            config, runner_cls = {"jax": (JaxConfig, JaxRunner),
+                                  "torch": (TorchConfig, TorchRunner)}[package]
+            cfg = config(**{**cfg_kwargs, **knobs, "analysis_dir": str(out),
                             "device": "cpu", "log_level": "WARNING"})
-            runner = {"jax": JaxRunner, "torch": TorchRunner}[package](cfg)
+            runner = runner_cls(cfg)
             runner.setup()
             events = runner.run()
             ledger = json.loads((out / "ledger.json").read_text())

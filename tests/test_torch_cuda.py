@@ -22,9 +22,14 @@ def card():
     return torch.device("cuda")
 
 
-def _codes(rng, B, Lq, Lt, n_rate=0.0):
+def _codes(rng, B, Lq, Lt, n_rate=0.0, pattern=None):
+    """Random codes (or ``pattern`` repeated: many cells share the best
+    score) with planted copies, a trailing query pad and ~``n_rate`` N."""
     q = rng.integers(0, 4, (B, Lq)).astype(np.int8)
     t = rng.integers(0, 4, (B, Lt)).astype(np.int8)
+    if pattern is not None:
+        q[:] = np.resize(np.array(pattern, np.int8), Lq)
+        t[:] = np.resize(np.array(pattern, np.int8), Lt)
     for b in range(0, B, 3):  # planted exact copies
         n = min(Lq, Lt) // 2
         t[b, 7:7 + n] = q[b, :n]
@@ -35,22 +40,60 @@ def _codes(rng, B, Lq, Lt, n_rate=0.0):
     return q, t
 
 
+_EDGES = [(3, 32 * R + dq, 300) for R in sw_cuda.ROWS_PER_LANE for dq in (-1, 0, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Lq,Lt", [(37, 128, 256), (5, 1024, 2048), (3, 300, 40),
-                                     (2, 10240, 512)])
-def test_kernel_matches_plain(card, B, Lq, Lt):
+@pytest.mark.parametrize("B,Lq,Lt,pattern", [
+    (37, 128, 256, None), (5, 1024, 2048, None), (3, 300, 40, None), (2, 10240, 512, None),
+    *[(B, Lq, Lt, None) for B, Lq, Lt in _EDGES],            # strip edges, every R
+    (4, 1, 50, None), (4, 50, 1, None), (2, 1, 1, None), (5, 20, 64, None),  # Lq, Lt tiny
+    (1, 256, 512, None), (131, 256, 512, None), (133, 256, 512, None),  # B across the SMs
+    (9, 200, 333, (0, 1)), (9, 300, 200, (0,)), (7, 600, 700, (0, 1, 2)),  # ties
+    (2, 10240, 2048, None),                                  # a long query, many strips
+])
+def test_kernel_matches_plain(card, B, Lq, Lt, pattern):
+    """Every case at the plan's own R and at each R forced, with the row
+    best packed as the plan has it and forced unpacked, exact."""
     rng = np.random.default_rng(Lq + Lt)
     cases = [(False, 0.01, SWParams()), (True, 0.0, SWParams()),
              (True, 0.0, SWParams(3, 2, 4, 2)), (False, 0.0, SWParams(2, 0, 5, 1))]
     for no_n, n_rate, params in cases:
-        q, t = (torch.from_numpy(a).to(card) for a in _codes(rng, B, Lq, Lt, n_rate))
-        before = sw_cuda.LAUNCHES
-        got = sw_cuda.sw_score_cuda(q, t, params, no_n=no_n)
-        torch.cuda.synchronize()
-        assert sw_cuda.LAUNCHES == before + 1
+        q, t = (torch.from_numpy(a).to(card)
+                for a in _codes(rng, B, Lq, Lt, n_rate, pattern))
         ref = sw_score(q, t, params)
-        for name, a, b in zip(("score", "q_end", "t_end"), ref, got):
-            assert torch.equal(a, b), f"{name} no_n={no_n} {params}"
+        for R in (None, *sw_cuda.ROWS_PER_LANE):
+            for unpacked in (False, True):
+                before = sw_cuda.LAUNCHES
+                got = sw_cuda.sw_score_cuda(q, t, params, no_n=no_n, rows_per_lane=R,
+                                            unpacked=unpacked)
+                torch.cuda.synchronize()
+                assert sw_cuda.LAUNCHES == before + 1
+                for name, a, b in zip(("score", "q_end", "t_end"), ref, got):
+                    assert torch.equal(a, b), \
+                        f"{name} no_n={no_n} {params} R={R} unpacked={unpacked}"
+        if pattern is not None:
+            assert int(ref[0].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lt,pattern", [
+    (3, 2048, 2048, None), (3, 2048, 2048, (0, 1)), (2, 2100, 2500, (0,)),
+])
+def test_kernel_matches_plain_past_the_packed_key(card, B, Lq, Lt, pattern):
+    """Scores of 2^15 and more: the plan itself keeps a row's best as score
+    and column apart; exact at every R, tie-heavy inputs included."""
+    rng = np.random.default_rng(Lq * Lt)
+    for no_n, params in ((False, SWParams(40, 30, 50, 20)), (True, SWParams(40, 30, 50, 20)),
+                         (False, SWParams(48, 0, 60, 10))):
+        assert not sw_cuda.launch_plan(B, Lq, Lt, match=params.match).pack
+        q, t = (torch.from_numpy(a).to(card) for a in _codes(rng, B, Lq, Lt, 0.0, pattern))
+        ref = sw_score(q, t, params)
+        assert int(ref[0].max()) >= 2 ** 15
+        for R in (None, *sw_cuda.ROWS_PER_LANE):
+            got = sw_cuda.sw_score_cuda(q, t, params, no_n=no_n, rows_per_lane=R)
+            for name, a, b in zip(("score", "q_end", "t_end"), ref, got):
+                assert torch.equal(a, b), f"{name} no_n={no_n} {params} R={R}"
 
 
 @pytest.mark.cuda
@@ -184,7 +227,7 @@ def test_cli_profile_traces_the_card(card, tmp_path):
     import json
 
     from breakmer_tpu_torch.cli import main
-    from tests.scenarios import build_scenario
+    from breakmer_tpu_torch.testing.scenarios import build_scenario
 
     cfg_kwargs, _ = build_scenario(1, tmp_path, n_genes=2, kinds=["ins", "del"])
     cfg_kwargs.update(device="cuda", batch_regions=False, log_level="WARNING")
@@ -207,8 +250,8 @@ def test_cli_profile_traces_the_card(card, tmp_path):
 def _batch_regions():
     """Regions whose reads carry a novel insertion; a matched normal that
     covers one of the insertions and is missing for another region."""
-    from breakmer_tpu.encode import ReadBatch, encode_seq
-    from tests.fixtures import rand_seq
+    from breakmer_tpu_torch.encode import ReadBatch, encode_seq
+    from breakmer_tpu_torch.testing.fixtures import rand_seq
 
     out = []
     for i in range(6):
@@ -265,9 +308,9 @@ def test_kmer_batch_step_forms_on_card_match_cpu(card):
 def test_cli_batched_run_on_card_launches_the_kernel(card, tmp_path):
     import json
 
-    from breakmer_tpu.utils.meter import METER
     from breakmer_tpu_torch.cli import main
-    from tests.scenarios import build_scenario
+    from breakmer_tpu_torch.testing.scenarios import build_scenario
+    from breakmer_tpu_torch.utils.meter import METER
 
     cfg_kwargs, _ = build_scenario(1, tmp_path, n_genes=2, kinds=["ins", "del"])
     cfg_kwargs.update(batch_regions=True, log_level="WARNING")

@@ -10,8 +10,9 @@ import json
 
 import pytest
 
-from breakmer_tpu.config import Config
+from breakmer_tpu.config import Config as JaxConfig
 from breakmer_tpu.runner import Runner as JaxRunner
+from breakmer_tpu_torch.config import Config as TorchConfig
 from breakmer_tpu_torch.runner import Runner as TorchRunner
 from tests.scenarios import build_scenario
 from tests.test_property_e2e import _CI_KINDS
@@ -27,7 +28,8 @@ def _scenario(seed, tmp_path):
 
 
 def _run(runner_cls, cfg_kwargs, out, prepare=None):
-    cfg = Config(**{**cfg_kwargs, "analysis_dir": str(out), "device": "cpu"})
+    config = JaxConfig if runner_cls is JaxRunner else TorchConfig
+    cfg = config(**{**cfg_kwargs, "analysis_dir": str(out), "device": "cpu"})
     runner = runner_cls(cfg)
     runner.setup()
     if prepare is not None:
@@ -115,3 +117,25 @@ def test_cli_run_profile_writes_trace_and_same_output(tmp_path):
     assert not (tmp_path / "plain" / "trace").exists()
     traces = list((tmp_path / "profiled" / "trace").iterdir())
     assert traces and all(p.stat().st_size > 0 for p in traces)
+
+
+def test_panel_ab_runs_two_trees_in_turns_on_the_host(tmp_path):
+    """tools/panel_ab.py, the A/B of two checkouts, on a 2-gene panel with
+    one checkout on both sides: every run ends, alternates and writes the
+    same svs.out."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(root / "breakmer_tpu_torch" / "tools" / "panel_ab.py"),
+         str(root), str(root), "--pairs", "2", "--genes", "2", "--paths", "serial",
+         "--device", "cpu", "--work", str(tmp_path)],
+        capture_output=True, text=True, timeout=300, check=True).stdout.splitlines()
+    runs = [json.loads(line) for line in out[:-1]]
+    assert [r["tree"] for r in runs] == ["A", "B", "B", "A"]
+    summary = json.loads(out[-1])
+    assert summary["svs_identical"] and summary["card"] is None
+    assert {k: v["runs"] for k, v in summary["regions_per_s"].items()} == {
+        "serial A": 2, "serial B": 2}

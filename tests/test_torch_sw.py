@@ -8,9 +8,9 @@ import numpy as np
 import pytest
 import torch
 
-from breakmer_tpu.encode import ReadBatch
 from breakmer_tpu.ops import sw as jsw
 from breakmer_tpu.ops.sw_pallas import sw_score_pallas
+from breakmer_tpu_torch.encode import ReadBatch
 from breakmer_tpu_torch.ops import sw as tsw
 from breakmer_tpu_torch.ops import sw_cuda
 from tests.test_sw import CASES, _pairs_to_batches, _random_cases
@@ -109,3 +109,69 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sw_cuda.sw_score_cuda(q, q)
     assert sw_cuda.LAUNCHES == 0
+
+
+# -- the CUDA kernel's launch plan (plain Python, so it is tested here) -----
+
+_LQ_TIERS = [128, 256, 512] + [1024 * k for k in range(1, 11)]
+_LT_TIERS = [256, 512, 1024] + [2048 * k for k in range(1, 9)]
+
+
+def _assert_legal(plan, B, Lq, Lt):
+    R, S = plan.rows_per_lane, plan.strips
+    assert R in sw_cuda.ROWS_PER_LANE
+    assert plan.threads % 32 == 0 and 0 < plan.threads <= 1024
+    assert plan.smem_bytes <= 227 * 1024
+    # every pair and every strip exactly once, in (pair, strip) order
+    assert plan.blocks * plan.threads // 32 >= plan.warps == B * S
+    assert (plan.blocks - 1) * plan.threads // 32 < plan.warps
+    # the kernel's item w is strip w % S of pair w // S
+    items = [(w // S, w % S) for w in range(plan.warps)]
+    assert items == [(b, k) for b in range(B) for k in range(S)]
+    # the strips cover rows 0 .. Lq - 1 once, none of them empty
+    assert 32 * R * (S - 1) < Lq <= 32 * R * S
+    header = 1 + B + 3 * B * S if S > 1 else 0
+    assert plan.header_ints == header
+    assert plan.scratch_ints == -(-header // 4) * 4 + 4 * B * (S - 1) * Lt
+    assert plan.pack == (2 * min(Lq, Lt) < 2 ** 15 and Lt <= 2 ** 16)
+
+
+@pytest.mark.parametrize("B", [1, 2, 131, 133, 512])
+def test_launch_plan_is_legal_for_every_realign_tier(B):
+    for Lq in _LQ_TIERS:
+        for Lt in _LT_TIERS:
+            _assert_legal(sw_cuda.launch_plan(B, Lq, Lt), B, Lq, Lt)
+
+
+def test_launch_plan_is_legal_for_the_smoke_shapes_and_every_R():
+    from chip_smoke import SW_SHAPES
+
+    for B, Lq, Lt in SW_SHAPES + [(3, 1, 1), (1, 129, 7), (4, 511, 3)]:
+        for R in (None, *sw_cuda.ROWS_PER_LANE):
+            _assert_legal(sw_cuda.launch_plan(B, Lq, Lt, R), B, Lq, Lt)
+    with pytest.raises(ValueError):
+        sw_cuda.launch_plan(2, 64, 64, rows_per_lane=3)
+
+
+@pytest.mark.parametrize("match,Lq,Lt,pack", [
+    (2, 2048, 2048, True), (16, 2047, 2048, True), (16, 2048, 2048, False),
+    (16, 4096, 2048, False), (2, 64, 2 ** 16, True), (2, 64, 2 ** 16 + 1, False),
+])
+def test_launch_plan_packs_the_row_key_only_in_its_range(match, Lq, Lt, pack):
+    """One key H * 2^16 + 65535 - j holds a row's best while the scores stay
+    below 2^15 and j below 2^16; past that the kernel keeps them apart."""
+    for R in sw_cuda.ROWS_PER_LANE:
+        assert sw_cuda.launch_plan(3, Lq, Lt, R, match=match).pack is pack
+
+
+def test_launch_plan_picks_rows_a_lane_by_its_estimate():
+    """A larger R where the pairs fill the card, a smaller one where a few
+    pairs must spread over more warps; the pick is the estimate's least."""
+    picks = {shape: sw_cuda.launch_plan(*shape).rows_per_lane
+             for shape in [(512, 256, 512), (301, 128, 256), (16, 1024, 6144),
+                           (2, 10240, 2048)]}
+    assert picks == {(512, 256, 512): 8, (301, 128, 256): 4, (16, 1024, 6144): 4,
+                     (2, 10240, 2048): 8}
+    for shape, R in picks.items():
+        est = {r: sw_cuda.step_clocks(*shape, r) for r in sw_cuda.ROWS_PER_LANE}
+        assert est[R] == min(est.values())
