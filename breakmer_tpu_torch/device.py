@@ -14,6 +14,8 @@ diverges on purpose.)
 
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
 
@@ -30,3 +32,14 @@ def resolve(device="auto") -> torch.device:
             )
         return torch.device("cuda" if name == "auto" else name)
     raise ValueError(f"device={name!r}: expected auto, cuda, cuda:N or cpu")
+
+
+def local_devices(device="auto") -> List[torch.device]:
+    """The devices a process shards its work over, the counterpart of
+    ``jax.local_devices()``: every visible card for "auto" and "cuda",
+    the one named device for "cuda:N" and "cpu". The runner's mesh and
+    sharded index take their devices from here alone."""
+    dev = resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]

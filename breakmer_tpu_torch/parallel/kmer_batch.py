@@ -1,14 +1,18 @@
 """Batched multi-region k-mer step (BASELINE.json config #3).
 
-Port of ``breakmer_tpu/parallel/kmer_batch.py`` on one device. The
-serial runner pays one device round trip per region; this step packs G
-regions into one fixed-shape batch (``parallel/regions.py``) and runs the
-k-mer extract/count/subtract of all G in one set of torch ops
-(``parallel/step._per_region_kmers``, shared with the region step).
+Port of ``breakmer_tpu/parallel/kmer_batch.py``. The serial runner
+pays one device round trip per region; this step packs G regions into
+one fixed-shape batch (``parallel/regions.py``) and runs the k-mer
+extract/count/subtract of all G in one set of torch ops
+(``parallel/step._per_region_kmers``, shared with the region step),
+optionally sharded over the regions axis of a mesh
+(``parallel/mesh.py``): each regions block goes to its own device,
+``_per_region_kmers`` runs per block, and the [G, K] outputs are
+gathered on the mesh's first device before ``_compact_outputs`` runs
+once over them (compaction after the ``all_gather``, as in JAX).
 
 Against the JAX module:
-  - Every entry point takes an explicit ``device``. A ``mesh`` raises:
-    sharding the step over several cards is ROADMAP Queue 1, item 2.
+  - Every entry point takes an explicit ``device``, or a ``mesh``.
   - There is no jit: the full and packed steps are plain functions.
   - Values are int64 on the device (SENTINEL sorts last, as in
     ``ops/kmer.py``), and so is the packed ``gid<<24 | count`` word; the
@@ -31,6 +35,7 @@ import torch
 
 from breakmer_tpu_torch.utils.meter import METER
 from breakmer_tpu_torch.ops.kmer import _SENT
+from breakmer_tpu_torch.parallel.mesh import gather, on_device, split_evenly
 from breakmer_tpu_torch.parallel.regions import RegionBatch, pack_region_batches, tier_key
 from breakmer_tpu_torch.parallel.step import _per_region_kmers
 
@@ -42,14 +47,6 @@ _SENTINEL = np.uint32(0xFFFFFFFF)
 # kmer-richer batch overflows the buffer, which the step reports (n=-1)
 # and the host retries with the full-shape fetch — bit-exact either way
 _PACK_SLOTS_PER_REGION = 512
-
-
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...): the k-mer batch step sharded over several "
-            "devices is not ported yet (ROADMAP Queue 1, item 2); pass mesh=None"
-        )
 
 
 def _compact_outputs(values: torch.Tensor, counts: torch.Tensor, cap: int):
@@ -74,16 +71,29 @@ def _compact_outputs(values: torch.Tensor, counts: torch.Tensor, cap: int):
     return out_v, out_gc, torch.where(bad, -1, n)
 
 
-def _kmer_body(k: int, min_count: int) -> Callable:
+def _kmer_body(k: int, min_count: int, mesh=None) -> Callable:
     """Full-shape step: [G, ...] inputs -> (values [G, K] int64, counts
     [G, K] int32). Overflow refetch of the packed step; also the identity
-    oracle in tests."""
-    return functools.partial(_per_region_kmers, k=k, min_count=min_count)
+    oracle in tests. With a mesh it takes one tuple of inputs a regions
+    block, each on its block's device (``_upload_sharded``), and returns
+    the gathered outputs on the mesh's first device."""
+    body = functools.partial(_per_region_kmers, k=k, min_count=min_count)
+    if mesh is None:
+        return body
+
+    def sharded(*blocks):
+        outs = []
+        for args in blocks:
+            with on_device(args[0].device):
+                outs.append(body(*args))
+        return tuple(gather([o[n] for o in outs], mesh.first) for n in range(2))
+
+    return sharded
 
 
-def _kmer_step_packed(k: int, min_count: int, cap: int) -> Callable:
+def _kmer_step_packed(k: int, min_count: int, cap: int, mesh=None) -> Callable:
     """Packed step: same compute, compacted outputs for the cheap fetch."""
-    body = _kmer_body(k, min_count)
+    body = _kmer_body(k, min_count, mesh)
 
     def fn(*a):
         return _compact_outputs(*body(*a), cap)
@@ -107,6 +117,20 @@ def _upload(arrays, device: torch.device) -> Tuple[tuple, tuple]:
         return host, ()
     pinned = tuple(h.pin_memory() for h in host)
     return tuple(p.to(device, non_blocking=True) for p in pinned), pinned
+
+
+def _upload_sharded(arrays, mesh) -> Tuple[tuple, tuple]:
+    """Host arrays -> one tuple of tensors a regions block, each on the
+    first device of its mesh row, and the pinned buffers of every block
+    (kept alive until the copies complete). G must split evenly over the
+    regions axis."""
+    rows = mesh.devices.shape[0]
+    blocks, pinned = [], []
+    for i, gs in enumerate(split_evenly(arrays[0].shape[0], rows, "G (regions)")):
+        args, p = _upload([a[gs] for a in arrays], mesh.devices[i, 0])
+        blocks.append(args)
+        pinned.append(p)
+    return tuple(blocks), tuple(pinned)
 
 
 def _fetch_packed(outs) -> List[Tuple[np.ndarray, np.ndarray, int]]:
@@ -172,15 +196,19 @@ class KmerBatchPipeline:
     same step, same postprocess); only the launch schedule changes.
 
     ``dispatched`` and ``refetched`` count the packed launches and the
-    overflow refetches of this pipeline."""
+    overflow refetches of this pipeline. It runs on ``device``, or
+    sharded over the regions axis of ``mesh`` (give one of the two); with
+    a mesh, ``regions_per_batch`` must split evenly over that axis."""
 
     def __init__(self, k: int, min_count: int = 2, mesh=None,
-                 regions_per_batch: int = 8, *, device):
-        _no_mesh(mesh, "KmerBatchPipeline")
+                 regions_per_batch: int = 8, *, device=None):
+        if (mesh is None) == (device is None):
+            raise ValueError("KmerBatchPipeline: give exactly one of device and mesh")
         self.k = k
         self.min_count = min_count
+        self.mesh = mesh
         self.rpb = regions_per_batch
-        self.device = torch.device(device)
+        self.device = mesh.first if mesh is not None else torch.device(device)
         self._buffers: Dict[tuple, list] = {}
         self._pending: list = []
         self.dispatched = 0
@@ -201,8 +229,11 @@ class KmerBatchPipeline:
 
     def _launch(self, b: RegionBatch) -> None:
         cap = b.reads.shape[0] * _PACK_SLOTS_PER_REGION
-        args, pinned = _upload(_step_args(b), self.device)
-        out = _kmer_step_packed(self.k, self.min_count, cap)(*args)
+        if self.mesh is None:
+            args, pinned = _upload(_step_args(b), self.device)
+        else:
+            args, pinned = _upload_sharded(_step_args(b), self.mesh)
+        out = _kmer_step_packed(self.k, self.min_count, cap, self.mesh)(*args)
         self._pending.append((b, out, args, pinned))
         self.dispatched += 1
 
@@ -224,7 +255,7 @@ class KmerBatchPipeline:
             if n < 0:  # packed overflow: full-shape refetch
                 with METER.stage("kmer_device"):
                     values, counts = _fetch_full(
-                        _kmer_body(self.k, self.min_count)(*args))
+                        _kmer_body(self.k, self.min_count, self.mesh)(*args))
                 self.refetched += 1
                 yield _postprocess(b, values, counts)
             else:
@@ -243,9 +274,10 @@ def run_kmer_batch(
     min_count: int = 2,
     mesh=None,
     *,
-    device,
+    device=None,
 ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
-    """One device launch for G regions; returns per-region sample-only
+    """One device launch for G regions (on ``device``, or sharded over
+    ``mesh``); returns per-region sample-only
     k-mers as {region_name: (values desc-by-count, counts)} — the same
     host-side contract as ops.kmer.sample_only_kmers, ready for the
     assembler. Batches built with a matched normal
@@ -259,12 +291,11 @@ def run_kmer_batches(
     min_count: int = 2,
     mesh=None,
     *,
-    device,
+    device=None,
 ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
     """Multi-batch form: launch EVERY batch before fetching anything,
     then one fetch for all outputs."""
-    _no_mesh(mesh, "run_kmer_batches")
-    kb = KmerBatchPipeline(k, min_count, device=device)
+    kb = KmerBatchPipeline(k, min_count, mesh, device=device)
     with METER.stage("kmer_device"):
         for b in batches:
             kb._launch(b)

@@ -10,14 +10,17 @@ in-memory object), reference data is cached as packed .npy artifacts
 (content-addressed by region), and a per-region completion ledger enables
 resume at region granularity (SURVEY.md §5 checkpoint/resume).
 
-Port of breakmer_tpu/runner.py: the serial path and the batched panel
-path (``batch_regions``). The reference's Pool(nprocs) maps to nprocs
-host worker THREADS over the batched path's host stages (extract /
-assemble / classify), with every cross-region ordering decision kept on
-the main thread so nprocs>1 output is byte-identical to nprocs=1. The
-sharded genome index and multihost runs are not ported yet (setup raises
-for their knobs); ``Config.device`` picks the torch device of the k-mer
-and SW stages (breakmer_tpu_torch.device).
+Port of breakmer_tpu/runner.py. Device-level data parallelism over
+regions lives in parallel/: the batched path's packed k-mer launches
+shard over a mesh of the process's local devices
+(``device.local_devices``) when it has more than one, and so does the
+genome seed table with ``shard_genome_index``; ``multihost`` partitions
+targets across processes and process 0 merges their ledger shards. The
+reference's Pool(nprocs) maps to nprocs host worker THREADS over the
+batched path's host stages (extract / assemble / classify), with every
+cross-region ordering decision kept on the main thread so nprocs>1
+output is byte-identical to nprocs=1. ``Config.device`` picks the torch
+device of the k-mer and SW stages (breakmer_tpu_torch.device).
 """
 
 from __future__ import annotations
@@ -75,12 +78,13 @@ class Runner:
         cfg = self.cfg
         cfg.validate()
         setup_logger(cfg.analysis_dir, cfg.log_level)
-        for knob, item in (("shard_genome_index", 3), ("multihost", 4)):
-            if getattr(cfg, knob):
-                raise NotImplementedError(
-                    f"{knob} is not ported to breakmer_tpu_torch yet "
-                    f"(ROADMAP.md Queue 1, item {item})"
-                )
+        self.process_index, self.process_count = 0, 1
+        if cfg.multihost:
+            from breakmer_tpu_torch.parallel.multihost import init_distributed
+
+            self.process_index, self.process_count = init_distributed(
+                cfg.coordinator_address, cfg.num_processes, cfg.process_id
+            )
         from breakmer_tpu_torch.device import resolve
 
         self.device = resolve(cfg.device)
@@ -90,6 +94,17 @@ class Runner:
             gene_list = [g.strip() for g in Path(cfg.gene_list).read_text().split()]
         self.targets = read_targets_bed(cfg.targets_bed_file, gene_list)
         self.all_target_names = list(self.targets)
+        if cfg.multihost:
+            from breakmer_tpu_torch.parallel.multihost import partition_targets
+            mine = set(partition_targets(
+                self.all_target_names, self.process_index, self.process_count
+            ))
+            self.targets = {n: t for n, t in self.targets.items() if n in mine}
+            log.info(
+                "multihost: process %d/%d owns %d of %d targets",
+                self.process_index, self.process_count,
+                len(self.targets), len(self.all_target_names),
+            )
         if str(cfg.reference_fasta).endswith(".2bit"):
             # UCSC .2bit references accepted directly (migration compat
             # with the reference's faToTwoBit artifacts)
@@ -127,6 +142,27 @@ class Runner:
                 if cache is not None:
                     self.genome.save(cache)
                 log.info("genome index built in %.1fs", time.time() - t0)
+        if self.genome is not None and cfg.shard_genome_index:
+            from breakmer_tpu_torch.device import local_devices
+
+            devices = local_devices(cfg.device)
+            if len(devices) > 1:
+                # local devices only: each process owns a full copy of the
+                # index sharded over its own devices (regions are already
+                # process-partitioned; no cross-process lookup traffic)
+                from breakmer_tpu_torch.parallel.index_shard import (
+                    ShardedGenomeIndex, make_shard_mesh,
+                )
+
+                self.genome = ShardedGenomeIndex(
+                    self.genome, make_shard_mesh(devices=devices))
+                log.info(
+                    "genome seed table sharded over %d devices",
+                    self.genome.mesh.devices.size,
+                )
+            else:
+                log.info("shard_genome_index requested but only 1 device; "
+                         "keeping the replicated index")
         if cfg.repeat_mask_file:
             self.rmask = RepeatMask.from_bed(cfg.repeat_mask_file)
         if cfg.other_regions_file:
@@ -162,6 +198,10 @@ class Runner:
     # -- ledger (checkpoint/resume, SURVEY.md §5) --------------------------
     @property
     def _ledger_path(self) -> Path:
+        if self.cfg.multihost:
+            from breakmer_tpu_torch.parallel.multihost import shard_ledger_path
+
+            return shard_ledger_path(self.cfg.analysis_dir, self.process_index)
         return Path(self.cfg.analysis_dir) / "ledger.json"
 
     @property
@@ -548,9 +588,15 @@ class Runner:
         METER.reset()  # per-run stage/GCUPS counters (-> metrics.json)
         if not self.targets:
             self.setup()
-        if cfg.batch_regions:
-            return self._run_batched(resume)
-        return self._run_serial(resume)
+        try:
+            if cfg.batch_regions:
+                return self._run_batched(resume)
+            return self._run_serial(resume)
+        finally:
+            if cfg.multihost:
+                from breakmer_tpu_torch.parallel.multihost import shutdown_distributed
+
+                shutdown_distributed()
 
     def _run_serial(self, resume: bool) -> List[SVEvent]:
         cfg = self.cfg
@@ -637,16 +683,32 @@ class Runner:
         all_events: List[SVEvent] = []
         t_start = time.time()
 
-        # the packed k-mer launches run on self.device alone, and dispatch
-        # DURING extraction. (The JAX package shards them over a mesh when
-        # a process has several devices; that is ROADMAP Queue 1, item 2.
-        # Per-region results do not depend on it.)
-        log.info("kmer batch on %s (the multi-device mesh is not ported: "
-                 "ROADMAP Queue 1, item 2)", self.device)
+        # device mesh decided up front so packed k-mer launches can
+        # dispatch DURING extraction — sharded over the local device mesh
+        # when more than one device is attached
+        from breakmer_tpu_torch.device import local_devices
+
+        mesh = None
+        # LOCAL devices only: regions are already partitioned across
+        # processes at the host level (multihost model), so each process
+        # shards its own batches over its own devices
+        devices = local_devices(cfg.device)
+        if len(devices) > 1:
+            from breakmer_tpu_torch.parallel.mesh import make_mesh_2d
+
+            mesh = make_mesh_2d(devices=devices)
+            log.info(
+                "kmer batch sharded over %d devices (%s)",
+                mesh.devices.size, "x".join(map(str, mesh.devices.shape)),
+            )
+        # batch G must divide evenly over the mesh regions axis
         rpb = max(1, int(cfg.kmer_regions_per_batch or 32))
+        if mesh is not None:
+            r_axis = mesh.devices.shape[0]
+            rpb = r_axis * max(1, rpb // r_axis)
         kb = KmerBatchPipeline(
-            cfg.kmer_size, cfg.min_kmer_count, regions_per_batch=rpb,
-            device=self.device,
+            cfg.kmer_size, cfg.min_kmer_count, mesh=mesh, regions_per_batch=rpb,
+            device=None if mesh is not None else self.device,
         )
         self.kmer_pipeline = kb
 
@@ -856,9 +918,19 @@ class Runner:
 
     def _finalize(self, ledger, all_events, t_start) -> List[SVEvent]:
         cfg = self.cfg
-        self._save_ledger(ledger)
+        if cfg.multihost:
+            if self.process_index != 0:
+                log.info("multihost: worker %d done (%d targets); process 0 "
+                         "merges the output", self.process_index, len(self.targets))
+                return all_events
+            from breakmer_tpu_torch.parallel.multihost import merge_ledger_shards
+
+            ledger = merge_ledger_shards(
+                cfg.analysis_dir, self.all_target_names, self.process_count
+            )
+        self._save_ledger(ledger if not cfg.multihost else self._load_ledger())
         # aggregate from the ledger so resumed targets keep their calls
-        order = list(self.targets)
+        order = self.all_target_names if cfg.multihost else list(self.targets)
         all_rows = [
             row for name in order for row in ledger.get(name, {}).get("rows", [])
         ]

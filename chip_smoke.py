@@ -40,7 +40,22 @@ phase's wall time is printed):
      breakmer_tpu_torch.bench, the ceiling probe and the three probes of
      breakmer_tpu_torch.tools, then python -m
      breakmer_tpu_torch.bench_panel; each probe kernel must have
-     launched.
+     launched;
+ 12. the region step over a virtual (2, 2) mesh on the card (each shard
+     on cuda:0), exact against the unsharded CUDA step and the CPU step
+     at the bench's shape, one SW launch a shard; both forms timed;
+ 13. the k-mer batch step of phase 9 over the same mesh, full and
+     packed, exact against the unsharded CUDA step and the CPU step;
+ 14. the batched runner on the 100-gene panel with
+     ``device.local_devices`` patched to [cuda:0] * 4 (its k-mer launches
+     through a (2, 2) mesh), byte-identical to phase 6's serial output;
+ 15. a seed table of a 24-chromosome, ~300 Mbp genome sharded over
+     [cuda:0] * 4 and [cuda:0]: 2,000 contigs' candidate windows equal
+     GenomeIndex.candidates; then the runner with shard_genome_index on
+     the 100-gene panel, byte-identical to phase 6;
+ 16. multihost: two processes on the card (a gloo rendezvous on
+     127.0.0.1) run the 100-gene panel over their round-robin halves;
+     process 0's merged svs.out and VCF are byte-identical to phase 6's.
 The last two lines are the kernel table (with each kernel's bound and
 the time of one PyTorch call computing the same function, null where
 there is none) and
@@ -56,6 +71,7 @@ packed two to a lane.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import sys
@@ -139,7 +155,7 @@ def sw_max_err(ref, got) -> int:
 def phase_sw(dev, card):
     from breakmer_tpu_torch.ops import sw_cuda
     from breakmer_tpu_torch.ops.sw import SWParams, sw_score
-    from breakmer_tpu_torch.timing import cuda_ms, queued_ms
+    from breakmer_tpu_torch.timing import cuda_ms, device_us, queued_ms
 
     rng = np.random.default_rng(2024)
     max_err = 0
@@ -178,9 +194,14 @@ def phase_sw(dev, card):
         k_ms = cuda_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True))
         d_ms = queued_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True), n=10)
         p_ms = cuda_ms(lambda: sw_score(q, t))
+        if (B, Lq, Lt) == HEADLINE:  # the profiler's reading of a ctypes launch
+            prof_ms = device_us(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True), n=20) / 1e3
+            print(f"  SW {B}x{Lq}x{Lt}: device ms, torch.profiler (timing.device_us) "
+                  f"{prof_ms:.4f}, queued events {d_ms:.4f} [{card}]", flush=True)
         cells = B * Lq * Lt
         b_ms, b_by = sw_bound(B, Lq, Lt)
         rows.append(dict(shape=[B, Lq, Lt], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                         profiler_device_ms=prof_ms if (B, Lq, Lt) == HEADLINE else None,
                          bound_ms=b_ms, bound_by=b_by, rows_per_lane=plan.rows_per_lane,
                          strips=plan.strips, device_ms_by_rows_per_lane=by_r,
                          gcups=cells / k_ms / 1e6, plain_gcups=cells / p_ms / 1e6))
@@ -405,14 +426,14 @@ def phase_slice_scale(card, panel):
 def phase_batched_panel(card, panel, serial_sw_batches):
     """The batched path on the 100-gene panel: nprocs 1 cold, nprocs 1
     warm (timed), nprocs 4; each byte-identical to phase 6's serial CUDA
-    output. Returns the warm run's SW kernel launches and its SW launches
-    by shape."""
+    output. Returns the warm run's SW kernel launches, its SW launches by
+    shape and its regions/s."""
     from breakmer_tpu_torch.utils.meter import METER
     from breakmer_tpu_torch.ops import sw_cuda
 
     cfg_kwargs, _, work = panel
     serial = {name: (work / "cuda" / "output" / name).read_bytes() for name in OUTPUTS}
-    warm_launches = 0
+    warm_launches, warm_rate = 0, 0.0
     for label, nprocs in (("cold", 1), ("warm", 1), ("nprocs4", 4)):
         kw = {**cfg_kwargs, "batch_regions": True, "nprocs": nprocs}
         out = work / f"batched_{label}"
@@ -438,14 +459,14 @@ def phase_batched_panel(card, panel, serial_sw_batches):
               f"(serial run: {serial_sw_batches}), {metrics['sw']['cells']} cells; "
               f"svs.out and VCF == serial [{card}]", flush=True)
         if label == "warm":
-            warm_launches = launches
+            warm_launches, warm_rate = launches, n_regions / run_s
     kw = {**cfg_kwargs, "batch_regions": True, "nprocs": 1}
     with SWRecorder() as rec:  # an untimed warm run for the launches by shape
         run_panel(kw, work / "batched_recorded", "cuda")
     check(len(rec.calls) == warm_launches, "the recorded batched run launched SW differently")
     by_shape = rec.by_shape("batched panel100 warm", card)
     torch.cuda.synchronize()
-    return warm_launches, by_shape
+    return warm_launches, by_shape, warm_rate
 
 
 def phase_kmer_batch_step(dev, card):
@@ -646,6 +667,360 @@ def phase_measurement_path():
     return launches
 
 
+def card0() -> torch.device:
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@contextlib.contextmanager
+def local_devices(devices):
+    """``device.local_devices`` patched to ``devices`` (a virtual mesh:
+    the runner's only source of its devices), restored afterwards."""
+    from breakmer_tpu_torch import device
+
+    orig = device.local_devices
+    device.local_devices = lambda _device="auto": list(devices)
+    try:
+        yield
+    finally:
+        device.local_devices = orig
+
+
+def same_arrays(want, got) -> bool:
+    return all(a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+               for a, b in zip(want, got))
+
+
+def phase_sharded_region_step(card):
+    """The region step over a virtual (2, 2) mesh on the card, exact
+    against the unsharded CUDA step and the CPU step at the bench's shape
+    (bench inputs and tiled reads); one SW launch a shard a step; ms a
+    step (CUDA events) and device ms (``timing.device_us``) of both forms.
+    Returns the SW launches of one sharded step."""
+    from breakmer_tpu_torch import bench
+    from breakmer_tpu_torch.ops import sw_cuda
+    from breakmer_tpu_torch.parallel.mesh import make_mesh_2d
+    from breakmer_tpu_torch.parallel.step import make_region_step, to_numpy
+    from breakmer_tpu_torch.timing import cuda_ms, device_us
+
+    dev = card0()
+    mesh = make_mesh_2d(devices=[dev] * 4)
+    check(mesh.devices.shape == (2, 2), f"mesh {mesh}")
+    single = make_region_step(mesh=None, k=bench.K)
+    sharded = make_region_step(mesh=mesh, k=bench.K)
+    tiled = tiled_region_inputs(bench.G, bench.R, bench.L, bench.LREF, bench.GB,
+                                bench.GLQ, bench.GLT)
+    step_launches = 0
+    for label, host in (("bench inputs", bench.region_step_inputs("cpu")),
+                        ("tiled reads", tuple(torch.from_numpy(a) for a in tiled))):
+        inputs = tuple(x.to(dev) for x in host)
+        sw_cuda.LAUNCHES = 0  # one sharded step starts here
+        got = sharded(*inputs)
+        torch.cuda.synchronize()
+        step_launches = sw_cuda.LAUNCHES
+        check(step_launches == 4, f"sharded region step: {step_launches} SW launches, not 4")
+        check(all(x.device == mesh.first for x in got), "sharded step outputs off the first device")
+        got = to_numpy(got)
+        check(same_arrays(to_numpy(single(*host)), got), f"sharded region step ({label}) != CPU")
+        check(same_arrays(to_numpy(single(*inputs)), got),
+              f"sharded region step ({label}) != the unsharded CUDA step")
+        print(f"  sharded region step 2x2 on {dev}, {label}: == unsharded CUDA == CPU, "
+              f"{step_launches} SW launches a step [{card}]", flush=True)
+    for label, fn in (("unsharded", single), ("sharded 2x2", sharded)):
+        ms = cuda_ms(lambda: fn(*inputs))
+        dms = device_us(lambda: fn(*inputs), n=10) / 1e3
+        print(f"  region step {label}: {ms:.4f} ms a step (events), {dms:.4f} ms device "
+              f"[{card}]", flush=True)
+    return step_launches
+
+
+def phase_sharded_kmer_batch_step(card):
+    """The k-mer batch step at phase 9's shapes over a virtual (2, 2) mesh
+    on the card, full and packed, exact against the unsharded CUDA step
+    and the CPU step; each timed with its fetch."""
+    from breakmer_tpu_torch.parallel import kmer_batch as kb
+    from breakmer_tpu_torch.parallel.mesh import make_mesh_2d
+    from breakmer_tpu_torch.timing import cuda_ms
+
+    dev = card0()
+    G, R, L, LREF, RN = 32, 512, 128, 4096, 256
+    tiled = tiled_region_inputs(G, R, L, LREF, 0, 1, 1, RN=RN, NOVEL=256)
+    arrays = tiled[:4] + tiled[6:]
+    host = tuple(torch.from_numpy(a) for a in arrays)
+    args = tuple(a.to(dev) for a in host)
+    mesh = make_mesh_2d(devices=[dev] * 4)
+    blocks, _pinned = kb._upload_sharded(arrays, mesh)
+    cap = G * kb._PACK_SLOTS_PER_REGION
+    forms = {"full": (kb._kmer_body(15, 2), kb._kmer_body(15, 2, mesh), kb._fetch_full),
+             "packed": (kb._kmer_step_packed(15, 2, cap), kb._kmer_step_packed(15, 2, cap, mesh),
+                        lambda o: kb._fetch_packed([o]))}
+    for name, (single, sharded, fetch) in forms.items():
+        want, cuda, got = single(*host), single(*args), sharded(*blocks)
+        torch.cuda.synchronize()
+        for a, b, c in zip(want, cuda, got):
+            check(a.dtype == c.dtype and torch.equal(a, c.cpu()),
+                  f"sharded kmer batch step ({name}) != CPU")
+            check(torch.equal(b, c), f"sharded kmer batch step ({name}) != unsharded CUDA")
+        kept = int(got[2]) if name == "packed" else int((got[1] > 0).sum())
+        check(kept > 0, f"sharded kmer batch step ({name}): no sample-only k-mers")
+        ms = cuda_ms(lambda: fetch(sharded(*blocks)))
+        one = cuda_ms(lambda: fetch(single(*args)))
+        print(f"  sharded kmer batch step {name} G={G} over 2x2 on {dev}: == unsharded CUDA "
+              f"== CPU, {kept} kept k-mers; step + fetch {ms:.4f} ms (unsharded {one:.4f} ms) "
+              f"[{card}]", flush=True)
+
+
+def phase_mesh_runner(card, panel, batched_rate):
+    """The batched runner on the 100-gene panel with ``local_devices`` at
+    [cuda:0] * 4: its k-mer launches go through a (2, 2) mesh. Twice
+    (the second run timed as warm); svs.out and the VCF byte-identical to
+    phase 6's serial CUDA output. Returns the warm run's SW launches."""
+    from breakmer_tpu_torch.ops import sw_cuda
+    from breakmer_tpu_torch.utils.meter import METER
+
+    cfg_kwargs, _, work = panel
+    serial = {name: (work / "cuda" / "output" / name).read_bytes() for name in OUTPUTS}
+    kw = {**cfg_kwargs, "batch_regions": True, "nprocs": 1}
+    launches = 0
+    for label in ("first", "warm"):
+        out = work / f"mesh_{label}"
+        sw_cuda.LAUNCHES = 0  # this run of the mesh runner starts here
+        with local_devices([card0()] * 4):
+            events, metrics, setup_s, run_s, runner = run_panel(kw, out, "cuda")
+        launches = sw_cuda.LAUNCHES
+        kb = runner.kmer_pipeline
+        check(kb.mesh is not None and kb.mesh.devices.size == 4,
+              f"mesh runner {label}: the k-mer pipeline ran on {kb.mesh}")
+        check(launches > 0 and launches == METER.sw_launches,
+              f"mesh runner {label}: SW launches {launches} != SW batches {METER.sw_launches}")
+        for name in OUTPUTS:
+            check((out / "output" / name).read_bytes() == serial[name],
+                  f"mesh runner {label} {name} != the serial CUDA output")
+        n_regions = metrics["targets"]
+        print(f"  batched panel100 over the 2x2 mesh ({label}): {len(events)} calls in "
+              f"{run_s:.4f} s: {n_regions / run_s:.2f} regions/s (phase 8 warm, one device: "
+              f"{batched_rate:.2f}); {kb.dispatched} packed k-mer launches of {kb.rpb} regions, "
+              f"kmer_device {metrics['stage_s'].get('kmer_device', 0.0):.4f} s; SW {launches} "
+              f"launches; svs.out and VCF == serial [{card}]", flush=True)
+    return launches
+
+
+def genome_at_scale(rng, n_chrom=24, chrom_len=12_500_000, seg_len=5_000):
+    """{chrom: int8 codes}: ``n_chrom`` random chromosomes with one
+    ``seg_len`` segment copied into each, at a multiple of the index's step
+    (k = 11), so that its seeds form runs over every chromosome."""
+    segment = rng.integers(0, 4, seg_len).astype(np.int8)
+    genome = {}
+    for c in range(n_chrom):
+        codes = rng.integers(0, 4, chrom_len).astype(np.int8)
+        at = 11 * int(rng.integers(0, (chrom_len - seg_len) // 11))
+        codes[at:at + seg_len] = segment
+        genome[f"chr{c + 1}"] = codes
+    return genome, segment
+
+
+def index_contigs(rng, genome, segment, n=2000, length=250):
+    """``n`` contigs of ``length``: a quarter reverse-complemented, a
+    quarter split across two chromosomes, one in eight from the shared
+    segment, the rest forward."""
+    from breakmer_tpu_torch.encode import revcomp_codes
+
+    names = list(genome)
+    out = []
+    for i in range(n):
+        a, b = (genome[names[j]] for j in rng.choice(len(names), 2, replace=False))
+        s = int(rng.integers(0, len(a) - length))
+        contig = a[s:s + length].copy()
+        if i % 4 == 1:
+            contig = revcomp_codes(contig)
+        elif i % 4 == 2:
+            t = int(rng.integers(0, len(b) - length))
+            contig[length // 2:] = b[t:t + length - length // 2]
+        elif i % 8 == 3:
+            s = int(rng.integers(0, len(segment) - length))
+            contig = segment[s:s + length].copy()
+        out.append(contig)
+    return out
+
+
+def phase_sharded_index(card, panel):
+    """A seed table of a ~300 Mbp genome range-sharded over [cuda:0] * 4
+    and over [cuda:0]: 2,000 contigs' candidate windows equal
+    GenomeIndex.candidates; then the Runner on the 100-gene panel with
+    shard_genome_index over [cuda:0] * 4, byte-identical to phase 6.
+    Returns that run's SW launches."""
+    from breakmer_tpu_torch.align.index import GenomeIndex
+    from breakmer_tpu_torch.ops import sw_cuda
+    from breakmer_tpu_torch.parallel.index_shard import ShardedGenomeIndex, make_shard_mesh
+
+    dev = card0()
+    rng = np.random.default_rng(17)
+    t0 = time.perf_counter()
+    genome, segment = genome_at_scale(rng)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gi = GenomeIndex(genome, k=11)
+    build_s = time.perf_counter() - t0
+    bp = sum(len(c) for c in genome.values())
+    check(gi.step == 11, f"genome index step {gi.step}, expected 11")
+    print(f"  genome {len(genome)} chromosomes, {bp} bp (generated in {gen_s:.1f} s); "
+          f"GenomeIndex k=11 step {gi.step}: {len(gi._positions)} seeds, built in "
+          f"{build_s:.1f} s (host)", flush=True)
+    contigs = index_contigs(rng, genome, segment)
+    del genome
+    key = lambda ws: [(w.chrom, w.t_start, w.t_end, w.strand, w.nseeds) for w in ws]  # noqa: E731
+    t0 = time.perf_counter()
+    want = [key(gi.candidates(q)) for q in contigs]
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(contigs)
+    check(sum(map(len, want)) > len(contigs), "host index: too few candidate windows")
+    for D in (4, 1):
+        t0 = time.perf_counter()
+        si = ShardedGenomeIndex(gi, make_shard_mesh(devices=[dev] * D))
+        torch.cuda.synchronize()
+        ctor_s = time.perf_counter() - t0
+        host_copies = [x.cpu() for shard in si.shards for x in shard]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = [h.to(dev) for h in host_copies]
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        del again, host_copies
+        si.candidates(contigs[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [key(si.candidates(q)) for q in contigs]
+        ms = (time.perf_counter() - t0) * 1e3 / len(contigs)
+        bad = sum(a != b for a, b in zip(want, got))
+        check(bad == 0, f"sharded index D={D}: {bad} of {len(contigs)} contigs' windows "
+                        "differ from GenomeIndex.candidates")
+        print(f"  sharded index D={D} on {dev}: h_pad {si.h_pad}, {si.shard_nbytes} bytes a "
+              f"shard ({D * si.shard_nbytes} on the card); table build + upload {ctor_s:.2f} s "
+              f"(upload of the same bytes again {upload_s:.3f} s); {len(contigs)} contigs' "
+              f"windows == GenomeIndex: {ms:.3f} ms a contig (host index {host_ms:.3f} ms) "
+              f"[{card}]", flush=True)
+        del si
+        torch.cuda.empty_cache()
+    del gi
+    cfg_kwargs, _, work = panel
+    out = work / "sharded_index"
+    sw_cuda.LAUNCHES = 0  # this run of the sharded-index runner starts here
+    with local_devices([dev] * 4):
+        _, metrics, setup_s, run_s, runner = run_panel(
+            {**cfg_kwargs, "batch_regions": False, "shard_genome_index": True}, out, "cuda")
+    launches = sw_cuda.LAUNCHES
+    check(isinstance(runner.genome, ShardedGenomeIndex) and runner.genome.mesh.devices.size == 4,
+          f"shard_genome_index: runner.genome is {type(runner.genome).__name__}")
+    check(launches > 0, "sharded-index runner: the SW kernel launched no time")
+    for name in OUTPUTS:
+        serial = (work / "cuda" / "output" / name).read_bytes()
+        check((out / "output" / name).read_bytes() == serial,
+              f"sharded-index runner {name} != the serial CUDA output")
+    print(f"  panel100 serial with the seed table sharded over 4: {metrics['targets'] / run_s:.2f} "
+          f"regions/s (setup {setup_s:.2f} s); SW {launches} launches; svs.out and VCF == "
+          f"serial [{card}]", flush=True)
+    return launches
+
+
+MH_WORKER = r"""
+import json, sys, time
+from pathlib import Path
+import torch
+from breakmer_tpu_torch.config import Config
+from breakmer_tpu_torch.ops import sw_cuda
+from breakmer_tpu_torch.runner import Runner
+
+cfg_file, pid, port, n = sys.argv[1], int(sys.argv[2]), sys.argv[3], int(sys.argv[4])
+cfg = Config(**{**json.loads(Path(cfg_file).read_text()), "multihost": n > 1,
+                "num_processes": n, "process_id": pid,
+                "coordinator_address": f"127.0.0.1:{port}"})
+t0 = time.perf_counter()
+r = Runner(cfg)
+r.setup()
+r.run()
+torch.cuda.synchronize()
+print(json.dumps({"worker": pid, "targets": len(r.targets), "of": len(r.all_target_names),
+                  "sw_launches": sw_cuda.LAUNCHES, "run_s": time.perf_counter() - t0}))
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_workers(cfg_file: Path, out: Path, n: int, timeout: float = 300):
+    """``n`` worker processes of MH_WORKER on the card, writing under
+    ``out``; (wall s, [their JSON lines]). A second port is tried once if
+    the first fails; a worker still running at the timeout is killed by
+    its PID."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for attempt in (0, 1):
+        shutil.rmtree(out, ignore_errors=True)
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", MH_WORKER, str(cfg_file), str(p),
+                                   str(port), str(n)], cwd=str(ROOT), env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for p in range(n)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=max(1.0, t0 + timeout - time.perf_counter())))
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.communicate()
+            raise SmokeFailure(f"multihost workers still running after {timeout} s")
+        wall = time.perf_counter() - t0
+        if all(p.returncode == 0 for p in procs):
+            return wall, [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+        if attempt == 1:
+            raise SmokeFailure("multihost workers failed: " + " | ".join(
+                f"rc {p.returncode}: {e[-1500:]}" for p, (_, e) in zip(procs, outs)))
+
+
+def phase_multihost(card, panel):
+    """Two processes on the card join a gloo rendezvous on 127.0.0.1 and
+    run the 100-gene panel (serial path, device cuda) over their
+    round-robin halves; process 0's merged svs.out and VCF must be
+    byte-identical to phase 6's serial CUDA output. Then one process runs
+    the panel alone, for the wall time beside it. Returns each worker's
+    SW launches."""
+    from breakmer_tpu_torch.parallel.multihost import partition_targets
+
+    cfg_kwargs, _, work = panel
+    runs = {}
+    for n in (2, 1):
+        out = work / f"multihost_{n}"
+        cfg_file = work / f"multihost_{n}.json"
+        cfg_file.write_text(json.dumps({**cfg_kwargs, "batch_regions": False, "device": "cuda",
+                                        "log_level": "WARNING", "analysis_dir": str(out)}))
+        runs[n] = spawn_workers(cfg_file, out, n)
+        for name in OUTPUTS:
+            check((out / "output" / name).read_bytes()
+                  == (work / "cuda" / "output" / name).read_bytes(),
+                  f"{n}-process run {name} != the serial CUDA output")
+    wall, lines = runs[2]
+    names = [f"r{i}" for i in range(lines[0]["of"])]
+    for line in lines:
+        check(line["targets"] == len(partition_targets(names, line["worker"], 2)),
+              f"worker {line['worker']} ran {line['targets']} of {line['of']} targets")
+        check(line["sw_launches"] > 0, f"worker {line['worker']}: no SW launch")
+    print(f"  multihost 2 processes on {card0()}: targets "
+          f"{[line['targets'] for line in lines]} of {lines[0]['of']}, SW launches "
+          f"{[line['sw_launches'] for line in lines]}; wall {wall:.2f} s (processes started "
+          f"to exit; in-process run {[round(line['run_s'], 2) for line in lines]} s) against "
+          f"one process {runs[1][0]:.2f} s ({runs[1][1][0]['run_s']:.2f} s in-process); merged "
+          f"svs.out and VCF == serial [{card}]", flush=True)
+    return [line["sw_launches"] for line in lines]
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "sw_wavefront": ("breakmer_tpu_torch/csrc/sw_wavefront.cu",
                      "breakmer_tpu/ops/sw_pallas.py:179"),
@@ -689,19 +1064,29 @@ def main() -> int:
     timed("slice seeds 1, 7", phase_slice_exact, card)
     panel = build_panel100()
     sw_launches, serial_by_shape = timed("panel100", phase_slice_scale, card, panel)
-    batched_launches, batched_by_shape = timed("batched panel100", phase_batched_panel,
-                                               card, panel, sw_launches)
+    batched_launches, batched_by_shape, batched_rate = timed(
+        "batched panel100", phase_batched_panel, card, panel, sw_launches)
     timed("kmer batch step", phase_kmer_batch_step, dev, card)
     rows = timed("probe kernels", phase_probes, dev, card)
     timed("region step", phase_region_step, dev, card)
     launches = timed("measurement path", phase_measurement_path)
+    step_launches = timed("sharded region step", phase_sharded_region_step, card)
+    timed("sharded kmer batch step", phase_sharded_kmer_batch_step, card)
+    mesh_launches = timed("mesh runner", phase_mesh_runner, card, panel, batched_rate)
+    index_launches = timed("sharded index", phase_sharded_index, card, panel)
+    multihost_launches = timed("multihost", phase_multihost, card, panel)
 
     head = next(r for r in sw_rows if tuple(r["shape"]) == HEADLINE)
     rows["sw_wavefront"] = dict(max_abs_err=sw_err, shape=head["shape"], ms=head["ms"],
                                 device_ms=head["device_ms"],
+                                profiler_device_ms=head["profiler_device_ms"],
                                 plain_ms=head["plain_ms"], library_ms=None,
                                 bound=(head["bound_ms"], head["bound_by"]),
                                 batched_path_launches=batched_launches,
+                                sharded_step_launches=step_launches,
+                                mesh_runner_launches=mesh_launches,
+                                sharded_index_runner_launches=index_launches,
+                                multihost_launches=multihost_launches,
                                 main_path_by_shape=serial_by_shape,
                                 batched_path_by_shape=batched_by_shape)
     launches["sw_wavefront"] = sw_launches
@@ -714,8 +1099,12 @@ def main() -> int:
                       "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
                       "bound_by": row["bound"][1], "library_ms": row["library_ms"],
                       "shape": row["shape"],
-                      **{k: row[k] for k in ("op", "device_ms", "plain_device_ms",
-                                             "library_device_ms", "batched_path_launches",
+                      **{k: row[k] for k in ("op", "device_ms", "profiler_device_ms",
+                                             "plain_device_ms", "library_device_ms",
+                                             "batched_path_launches", "sharded_step_launches",
+                                             "mesh_runner_launches",
+                                             "sharded_index_runner_launches",
+                                             "multihost_launches",
                                              "main_path_by_shape", "batched_path_by_shape")
                          if k in row}})
     print(card_line())

@@ -265,16 +265,30 @@ def test_kmer_batch_matches_jax(form, monkeypatch):
 
 @pytest.mark.parametrize("entry", ["KmerBatchPipeline", "run_kmer_batch",
                                    "run_kmer_batches"])
-def test_kmer_batch_sharded_form_is_not_ported(entry):
-    batch = treg.pack_region_batches(_kmer_regions()[:1], 1)[0]
-    calls = {
-        "KmerBatchPipeline": lambda: tkb.KmerBatchPipeline(15, mesh=object(), device="cpu"),
-        "run_kmer_batch": lambda: tkb.run_kmer_batch(batch, 15, 2, object(), device="cpu"),
-        "run_kmer_batches": lambda: tkb.run_kmer_batches([batch], 15, 2, object(),
-                                                         device="cpu"),
-    }
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        calls[entry]()
+def test_kmer_batch_sharded_form_matches_jax_mesh(entry):
+    """Each entry point over a (4, 2) mesh of CPU devices equals the JAX
+    package's over its (4, 2) mesh of virtual CPU devices."""
+    from breakmer_tpu.parallel import make_mesh_2d as jax_make_mesh_2d
+    from breakmer_tpu_torch.parallel.mesh import make_mesh_2d
+
+    mesh, jax_mesh = make_mesh_2d(devices=[torch.device("cpu")] * 8), jax_make_mesh_2d()
+    regions, jax_regions = _kmer_regions(), _kmer_regions(jenc)
+    if entry == "KmerBatchPipeline":
+        kb = tkb.KmerBatchPipeline(15, mesh=mesh, regions_per_batch=4)
+        jax_kb = jkb.KmerBatchPipeline(15, mesh=jax_mesh, regions_per_batch=4)
+        for r, jr in zip(regions, jax_regions):
+            kb.add(*r)
+            jax_kb.add(*jr)
+        got, want = kb.finish(), jax_kb.finish()
+    elif entry == "run_kmer_batch":
+        got = tkb.run_kmer_batch(treg.pack_region_batches(regions[:4], 4)[0], 15, 2, mesh)
+        want = jkb.run_kmer_batch(jreg.pack_region_batches(jax_regions[:4], 4)[0], 15, 2,
+                                  jax_mesh)
+    else:
+        got = tkb.run_kmer_batches(treg.pack_region_batches(regions, 4), 15, 2, mesh)
+        want = jkb.run_kmer_batches(jreg.pack_region_batches(jax_regions, 4), 15, 2, jax_mesh)
+    _assert_same_kmers(want, got)
+    assert sum(len(v) for v, _ in got.values()) > 0
 
 
 # ------------------------------------------- the batched runner end to end

@@ -324,3 +324,95 @@ def test_cli_batched_run_on_card_launches_the_kernel(card, tmp_path):
         out[dev] = (tmp_path / dev / "output" / "prop_svs.out").read_bytes()
     assert sw_cuda.LAUNCHES - before == METER.sw_launches > 0  # every SW batch
     assert out["cuda"] == out["cpu"] and out["cuda"].count(b"\n") > 1
+
+
+# -- device time, and the sharded forms over a virtual mesh on the card -------
+
+@pytest.mark.cuda
+def test_device_us_counts_the_ctypes_kernel(card):
+    """``timing.device_us`` reads the SW kernel (a ctypes launch, under no
+    torch op) within 10 % of the queued-events device time."""
+    from breakmer_tpu_torch.timing import device_us, queued_ms
+
+    q, t = (torch.from_numpy(a).to(card) for a in _codes(np.random.default_rng(9), 512, 256, 512))
+    fn = lambda: sw_cuda.sw_score_cuda(q, t, no_n=True)  # noqa: E731
+    queued = queued_ms(fn, n=20) * 1e3
+    profiled = device_us(fn)
+    assert profiled > 0
+    assert abs(profiled - queued) <= 0.10 * queued, (profiled, queued)
+
+
+def _card_mesh(card, n=4):
+    from breakmer_tpu_torch.parallel.mesh import make_mesh_2d
+
+    return make_mesh_2d(devices=[torch.device("cuda", torch.cuda.current_device())] * n)
+
+
+@pytest.mark.cuda
+def test_sharded_region_step_on_card_matches_unsharded_and_cpu(card):
+    rng = np.random.default_rng(12)
+    G, R, L, Lref, B, Lq, Lt = 4, 40, 100, 700, 6, 64, 160
+    arrays = (rng.integers(0, 4, (G, R, L)).astype(np.int8),
+              rng.integers(L // 2, L + 1, (G, R)).astype(np.int32),
+              rng.integers(0, 4, (G, Lref)).astype(np.int8),
+              np.full(G, Lref, np.int32),
+              rng.integers(0, 4, (G, B, Lq)).astype(np.int8),
+              rng.integers(0, 4, (G, B, Lt)).astype(np.int8))
+    arrays[0][:, R // 2:, :50] = arrays[0][:, :R // 2, 50:]  # repeated k-mers
+    on_card = [torch.from_numpy(a).to(card) for a in arrays]
+    mesh = _card_mesh(card)
+    before = sw_cuda.LAUNCHES
+    got = make_region_step(mesh=mesh, k=15)(*on_card)
+    torch.cuda.synchronize()
+    assert sw_cuda.LAUNCHES == before + 4  # one SW launch a shard
+    assert all(x.device == mesh.first for x in got)
+    want = to_numpy(make_region_step(mesh=None, k=15)(*map(torch.from_numpy, arrays)))
+    single = to_numpy(make_region_step(mesh=None, k=15)(*on_card))
+    for a, b, c in zip(want, to_numpy(got), single):
+        assert a.dtype == b.dtype == c.dtype
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(c, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [512, 1], ids=["packed", "overflow"])
+def test_sharded_kmer_batch_on_card_matches_cpu(card, slots, monkeypatch):
+    from breakmer_tpu_torch.parallel import kmer_batch as kb
+
+    monkeypatch.setattr(kb, "_PACK_SLOTS_PER_REGION", slots)
+    pipes = [kb.KmerBatchPipeline(15, regions_per_batch=4, device="cpu"),
+             kb.KmerBatchPipeline(15, mesh=_card_mesh(card), regions_per_batch=4)]
+    for pipe in pipes:
+        for r in _batch_regions():
+            pipe.add(*r)
+    want, got = (p.finish() for p in pipes)
+    assert list(got) == list(want) and pipes[1].refetched == pipes[0].refetched
+    for name in want:
+        for a, b in zip(want[name], got[name]):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 4])
+def test_sharded_index_on_card_matches_genome_index(card, D):
+    from breakmer_tpu_torch.align.index import GenomeIndex
+    from breakmer_tpu_torch.encode import encode_seq, revcomp_codes
+    from breakmer_tpu_torch.parallel.index_shard import ShardedGenomeIndex, make_shard_mesh
+    from breakmer_tpu_torch.testing.fixtures import rand_seq
+
+    genome = {f"chr{i}": rand_seq(60 + i, 20_000) + rand_seq(7, 500) for i in range(1, 5)}
+    gi = GenomeIndex(genome, k=11)
+    si = ShardedGenomeIndex(gi, make_shard_mesh(devices=[card] * D))
+    assert all(x.device.type == "cuda" for shard in si.shards for x in shard)
+    assert si.h_pad >= 4  # the shared 500 bp tail: one seed run over four chromosomes
+    rng = np.random.default_rng(D)
+    key = lambda ws: [(w.chrom, w.t_start, w.t_end, w.strand, w.nseeds) for w in ws]  # noqa: E731
+    for n in range(24):
+        chrom = f"chr{n % 4 + 1}"
+        s = int(rng.integers(0, 20_200))
+        q = encode_seq(genome[chrom][s:s + 250])
+        if n % 3 == 1:
+            q = revcomp_codes(q)
+        want = key(gi.candidates(q))
+        assert want and key(si.candidates(q)) == want

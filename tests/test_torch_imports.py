@@ -1,8 +1,7 @@
 """The port imports torch and never jax, nor any module of breakmer_tpu:
 its leaf modules and its scenario generator are copies that differ from
 their originals only in their imports. Its device selection raises
-instead of falling back; its runner refuses the knobs it has not ported
-and runs the ones it has."""
+instead of falling back; its runner runs every knob of the JAX runner."""
 
 import ast
 import dataclasses
@@ -14,6 +13,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import breakmer_tpu_torch
 
@@ -77,11 +77,27 @@ def _tiny_config(tmp_path, **knobs):
 
 
 @pytest.mark.parametrize("knob", ["shard_genome_index", "multihost"])
-def test_runner_refuses_unported_knobs(knob, tmp_path):
+def test_runner_runs_multi_device_knobs(knob, tmp_path, monkeypatch):
+    """Each knob's setup() and run() succeed on the tiny config (with four
+    local CPU devices, so the seed table is sharded) and write the
+    unsharded one-process run's bytes."""
+    from breakmer_tpu_torch import device
+    from breakmer_tpu_torch.parallel.index_shard import ShardedGenomeIndex
     from breakmer_tpu_torch.runner import Runner
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Runner(_tiny_config(tmp_path, **{knob: True})).setup()
+    out = {}
+    for label, knobs in (("plain", {}), ("knob", {knob: True})):
+        cfg = dataclasses.replace(_tiny_config(tmp_path, **knobs),
+                                  analysis_dir=str(tmp_path / label))
+        runner = Runner(cfg)
+        if label == "knob":
+            monkeypatch.setattr(device, "local_devices", lambda d="auto": [torch.device("cpu")] * 4)
+        runner.setup()
+        assert runner.run() == []
+        out[label] = [(tmp_path / label / "output" / name).read_bytes()
+                      for name in ("breakmer_tpu_svs.out", "breakmer_tpu.vcf")]
+    assert out["knob"] == out["plain"]
+    assert isinstance(runner.genome, ShardedGenomeIndex) == (knob == "shard_genome_index")
 
 
 def test_runner_runs_batch_regions(tmp_path):

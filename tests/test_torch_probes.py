@@ -242,3 +242,32 @@ def test_wrappers_refuse_a_non_cpu_non_cuda_tensor():
         i16.run_op(i16.OPS[0], meta((16, 256), torch.int16), meta((16, 256), torch.int16))
     with pytest.raises(ValueError, match="CUDA"):
         i16b.run_op(i16b.OPS[0], meta((16, 256), torch.int16), meta((16, 256), torch.int16))
+
+
+def test_device_ns_counts_every_device_activity():
+    """``timing.device_us`` sums the device activities of the trace: a
+    kernel with no torch op above it (a ctypes launch) counts as much as
+    one a torch op launched; host events count nothing."""
+    from torch.autograd import DeviceType
+
+    from breakmer_tpu_torch.timing import device_ns
+
+    class Event:
+        def __init__(self, device_type, start, end):
+            self._t = (device_type, start, end)
+
+        def device_type(self):
+            return self._t[0]
+
+        def start_ns(self):
+            return self._t[1]
+
+        def end_ns(self):
+            return self._t[2]
+
+    events = [Event(DeviceType.CPU, 0, 10_000),       # a torch op on the host
+              Event(DeviceType.CUDA, 100, 1_300),     # its kernel
+              Event(DeviceType.CPU, 20_000, 20_500),  # cudaLaunchKernel from ctypes
+              Event(DeviceType.CUDA, 21_000, 101_000)]  # a kernel no torch op launched
+    assert device_ns(events) == 1_200 + 80_000
+    assert device_ns([]) == 0

@@ -1,6 +1,6 @@
 """The fused region step: breakmer_tpu_torch.parallel.step against
-breakmer_tpu.parallel.step (both unsharded, mesh=None) on the same numpy
-inputs from a seed. Every output is an integer: tolerance 0, dtypes
+breakmer_tpu.parallel.step (unsharded, and sharded over a mesh of CPU
+devices) on the same numpy inputs from a seed. Every output is an integer: tolerance 0, dtypes
 included (k-mer values come back as uint32 with SENTINEL padding)."""
 
 import numpy as np
@@ -58,6 +58,17 @@ def test_region_step_matches_jax(k, shape):
     assert (got[2] > 0).all()
 
 
-def test_region_step_sharded_form_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        make_region_step(mesh=object())
+def test_region_step_sharded_form_matches_jax():
+    """The sharded step on a (2, 2) mesh of CPU devices against the JAX
+    sharded step on a (2, 2) mesh of its virtual CPU devices."""
+    from breakmer_tpu.parallel import make_mesh_2d as jax_make_mesh_2d
+    from breakmer_tpu_torch.parallel.mesh import make_mesh_2d
+
+    inputs = _inputs(9, G=4, R=8, L=32, Lref=128, B=8, Lq=16, Lt=32)
+    want = [np.asarray(x) for x in jax_region_step(mesh=jax_make_mesh_2d(4), k=9)(*inputs)]
+    mesh = make_mesh_2d(devices=[torch.device("cpu")] * 4)
+    assert mesh.devices.shape == (2, 2)
+    got = to_numpy(make_region_step(mesh=mesh, k=9)(*map(torch.from_numpy, inputs)))
+    for name, a, b in zip(("values", "counts", "scores", "q_end", "t_end"), want, got):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
