@@ -55,7 +55,16 @@ phase's wall time is printed):
      the 100-gene panel, byte-identical to phase 6;
  16. multihost: two processes on the card (a gloo rendezvous on
      127.0.0.1) run the 100-gene panel over their round-robin halves;
-     process 0's merged svs.out and VCF are byte-identical to phase 6's.
+     process 0's merged svs.out and VCF are byte-identical to phase 6's;
+ 17. the tools: gpu_agreement in full (the SW kernel against the plain
+     version on the pad-tier and strip-boundary cases, every launch
+     form): 0 mismatches, one SW launch a case, path and form;
+ 18. sweep_accuracy --genome repeats --seeds 8 --fp 4 on the card and on
+     the CPU: the two records equal apart from wall_s;
+ 19. probe_fetch: one fetch of n buffers against n fetches, pageable and
+     pinned; its JSON line;
+ 20. bench_genome_e2e at 100 Mbp on the card: ins, del and trl called,
+     the warm run (index artifact reloaded) equal to the cold one.
 The last two lines are the kernel table (with each kernel's bound and
 the time of one PyTorch call computing the same function, null where
 there is none) and
@@ -73,6 +82,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import shutil
 import sys
 import time
@@ -81,7 +91,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parent
+# "python3 dir/chip_smoke.py" puts dir on sys.path, not the working
+# directory: the port is found from the checkout the script is run in
+sys.path.insert(0, os.getcwd())
+import breakmer_tpu_torch  # noqa: E402
+
+ROOT = Path(breakmer_tpu_torch.__file__).resolve().parent.parent
 WORK = ROOT / "build" / "chip_smoke"
 SW_SHAPES = [(512, 256, 512), (301, 128, 256), (37, 1024, 2048), (16, 1024, 6144),
              (8, 3072, 2048), (64, 512, 16384), (2, 10240, 2048)]
@@ -955,7 +970,6 @@ def spawn_workers(cfg_file: Path, out: Path, n: int, timeout: float = 300):
     ``out``; (wall s, [their JSON lines]). A second port is tried once if
     the first fails; a worker still running at the timeout is killed by
     its PID."""
-    import os
     import subprocess
 
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -1021,6 +1035,69 @@ def phase_multihost(card, panel):
     return [line["sw_launches"] for line in lines]
 
 
+def phase_agreement(card):
+    """``gpu_agreement`` as a user runs it, with its record; returns its
+    SW kernel launches."""
+    from breakmer_tpu_torch.ops import sw_cuda
+    from breakmer_tpu_torch.tools import gpu_agreement
+
+    out = WORK / "agreement.json"
+    sw_cuda.LAUNCHES = 0  # the agreement tool starts here
+    rc = gpu_agreement.main(["--out", str(out)])
+    launches = sw_cuda.LAUNCHES
+    rec = json.loads(out.read_text())
+    paths = sum(len(c["paths"]) for c in rec["cases"])
+    check(rc == 0 and rec["mismatches"] == 0 and rec["agreement"],
+          f"gpu_agreement: {rec['mismatches']} mismatches")
+    check(launches == paths, f"gpu_agreement: {launches} SW launches for {paths} paths")
+    print(f"  gpu_agreement: {len(rec['cases'])} cases, {paths} paths, 0 mismatches, "
+          f"{launches} SW launches on {rec['device']} [{card}]", flush=True)
+    return launches
+
+
+def phase_sweep(card):
+    """sweep_accuracy on the repeat-rich genome, on the card and on the
+    CPU: the records must be equal apart from wall_s."""
+    from breakmer_tpu_torch.ops import sw_cuda
+    from breakmer_tpu_torch.tools import sweep_accuracy
+
+    recs = {}
+    for device in ("cuda", "cpu"):
+        out = WORK / f"sweep_{device}.json"
+        sw_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        sweep_accuracy.main(["--genome", "repeats", "--seeds", "8", "--fp", "4",
+                             "--device", device, "--out", str(out)])
+        wall = time.perf_counter() - t0
+        rec = json.loads(out.read_text())
+        rec.pop("wall_s")
+        recs[device] = rec
+        check(device == "cpu" or sw_cuda.LAUNCHES > 0, "the sweep launched no SW kernel")
+        print(f"  sweep_accuracy repeats, 8 seeds + 4 FP panels on {device}: {wall:.1f} s, "
+              f"SW launches {sw_cuda.LAUNCHES}; recall "
+              + ", ".join(f"{k} {v['ok']}/{v['n']}" for k, v in rec["recall"].items())
+              + f"; fp calls {rec['fp']['calls']} [{card}]", flush=True)
+    check(recs["cuda"] == recs["cpu"], "sweep_accuracy: the card's record != the CPU's")
+    print("  sweep_accuracy: the card's record == the CPU's", flush=True)
+
+
+def phase_fetch_probe():
+    from breakmer_tpu_torch.tools import probe_fetch
+
+    probe_fetch.main([])
+
+
+def phase_genome_e2e(card):
+    from breakmer_tpu_torch.tools import bench_genome_e2e
+
+    rec = bench_genome_e2e.main(["100e6"])
+    for key in ("ins_called", "del_called", "trl_called", "warm_equals_cold"):
+        check(rec[key], f"bench_genome_e2e at 100 Mbp: {key} false")
+    print(f"  bench_genome_e2e 100 Mbp on the card: {rec['calls']} calls, cold setup "
+          f"{rec['setup_cold_s']} s, warm {rec['setup_warm_s']} s, peak RSS "
+          f"{rec['peak_rss_mb']} MB [{card}]", flush=True)
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "sw_wavefront": ("breakmer_tpu_torch/csrc/sw_wavefront.cu",
                      "breakmer_tpu/ops/sw_pallas.py:179"),
@@ -1075,6 +1152,10 @@ def main() -> int:
     mesh_launches = timed("mesh runner", phase_mesh_runner, card, panel, batched_rate)
     index_launches = timed("sharded index", phase_sharded_index, card, panel)
     multihost_launches = timed("multihost", phase_multihost, card, panel)
+    agreement_launches = timed("gpu_agreement", phase_agreement, card)
+    timed("sweep_accuracy cuda vs cpu", phase_sweep, card)
+    timed("probe_fetch", phase_fetch_probe)
+    timed("bench_genome_e2e 100 Mbp", phase_genome_e2e, card)
 
     head = next(r for r in sw_rows if tuple(r["shape"]) == HEADLINE)
     rows["sw_wavefront"] = dict(max_abs_err=sw_err, shape=head["shape"], ms=head["ms"],
@@ -1087,6 +1168,7 @@ def main() -> int:
                                 mesh_runner_launches=mesh_launches,
                                 sharded_index_runner_launches=index_launches,
                                 multihost_launches=multihost_launches,
+                                agreement_launches=agreement_launches,
                                 main_path_by_shape=serial_by_shape,
                                 batched_path_by_shape=batched_by_shape)
     launches["sw_wavefront"] = sw_launches
@@ -1104,7 +1186,7 @@ def main() -> int:
                                              "batched_path_launches", "sharded_step_launches",
                                              "mesh_runner_launches",
                                              "sharded_index_runner_launches",
-                                             "multihost_launches",
+                                             "multihost_launches", "agreement_launches",
                                              "main_path_by_shape", "batched_path_by_shape")
                          if k in row}})
     print(card_line())

@@ -416,3 +416,24 @@ def test_sharded_index_on_card_matches_genome_index(card, D):
             q = revcomp_codes(q)
         want = key(gi.candidates(q))
         assert want and key(si.candidates(q)) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", sw_cuda.ROWS_PER_LANE)
+@pytest.mark.parametrize("unpacked", [False, True], ids=["packed", "unpacked"])
+def test_agreement_pad_rows_match_plain(card, R, unpacked):
+    """gpu_agreement's 64x(256x512) pad-tier case, generic form: its
+    mid-sequence pad (row 4's query tail, row 2's N run) and all-pad row
+    (5) through the kernel at each R, packed and unpacked, exact."""
+    from breakmer_tpu_torch.tools import gpu_agreement
+
+    cases = gpu_agreement.build_cases(np.random.default_rng(gpu_agreement.SEED))
+    _, paths, _ = next(c for c in cases if c[0] == "64x(256x512)")
+    _, q, t, _ = next(p for p in paths if p[0] == "generic")
+    assert (q[5] == 4).all() and (q[4, 128:] == 4).all() and (q[2, 85:90] == 4).all()
+    q, t = torch.from_numpy(q).to(card), torch.from_numpy(t).to(card)
+    want = sw_score(q, t)
+    got = sw_cuda.sw_score_cuda(q, t, rows_per_lane=R, unpacked=unpacked)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert int(want[0][5]) == 0
