@@ -8,6 +8,11 @@ and loads it with ctypes. The library lives in
 hash of the sources and flags, so an edited source builds anew and an
 unchanged one is reused. No ``nvcc`` or a failed build raises: there is
 no fallback.
+
+``launch`` is the lean launch path of a wrapper that keeps the library's
+ctypes function in a module global: the card made current only when it
+is not, the current stream's raw handle, and the error string looked up
+only when a launch fails.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 BUILD_ROOT = _PKG.parent / "build" / "breakmer_tpu_torch"
@@ -104,10 +111,8 @@ def library() -> ctypes.CDLL:
         lib.sw_wavefront_error_string.argtypes = [i32]
         lib.sw_ceiling_probe_launch.restype = i32
         lib.sw_ceiling_probe_launch.argtypes = [vp, vp] + [i32] * 6 + [vp, vp]
-        lib.sw_ceiling_probe_smem_bytes.restype = ctypes.c_longlong
-        lib.sw_ceiling_probe_smem_bytes.argtypes = [i32]
         lib.probe_i16_launch.restype = i32
-        lib.probe_i16_launch.argtypes = [i32, vp, vp, vp, vp, i32, i32, vp]
+        lib.probe_i16_launch.argtypes = [i32, vp, vp, vp, vp, i32, i32, i32, vp]
         lib.probe_cummax_launch.restype = i32
         lib.probe_cummax_launch.argtypes = [vp, vp, i32, i32, vp]
         _lib = lib
@@ -124,6 +129,18 @@ def check_launch(err: int, what: str) -> None:
 
 def stream_of(x) -> int:
     """The handle of PyTorch's current stream on tensor ``x``'s card."""
-    import torch
-
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def launch(fn, index: int, what: str, *args) -> None:
+    """``fn(*args, stream)`` on card ``index``, with ``stream`` the raw
+    handle of its current stream (no ``Stream`` object is built); the card
+    is made current only when it is not already. Raises when ``fn``
+    returns a CUDA error (``what`` names the launch)."""
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        check_launch(err, what)

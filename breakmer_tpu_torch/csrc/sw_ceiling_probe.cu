@@ -1,8 +1,7 @@
 // The SW wavefront loop stripped to its per-step exchange, for Hopper
-// (sm_90a): a probe of what bounded the first design of
-// csrc/sw_wavefront.cu (one block a pair, a barrier a diagonal). The
-// "sw_wavefront" below is that design, since replaced by a
-// warp-synchronous wavefront in registers.
+// (sm_90a), laid out as the current csrc/sw_wavefront.cu: one warp a
+// row, the state in registers, three warp shuffles a step, no shared
+// memory and no barrier.
 //
 // Replaces tools/sw_ceiling_probe.py::_loop_kernel (launched by
 // stripped). Per row of B rows, four int32 state vectors of Lq lanes
@@ -17,112 +16,154 @@
 // and the row's final hd1 is the output. The plain version is
 // breakmer_tpu_torch/tools/sw_ceiling_probe.py::stripped_plain.
 //
-// Design, laid out to read against sw_wavefront.cu: one block per row;
-// the threads stride over the Lq lanes; the state lives in shared memory
-// in rotating buffers (H in three, as sw_wavefront's H diagonals; F and
-// the target stream in two each), so each step reads the previous steps'
-// buffers and writes a buffer nobody reads in that step, and one
-// __syncthreads a step orders the sweep, as that design's did. In
-// rolls3 a thread reads lane i-1, which another thread wrote: the
-// cross-thread exchange that sw_wavefront makes on every diagonal
-// (h1[i-1], f1[i-1], h2[i-1]). rolls0 keeps all of that exchange except
-// the neighbour: the same shared-memory buffers, loads, stores and the
-// barrier a step, with every thread reading its own lane. So
-// rolls3 / full is the share of sw_wavefront's time that its
-// per-diagonal exchange skeleton (shared-memory round trip + barrier)
-// sets, and rolls3 - rolls0 is what reading a neighbour's lane costs
-// over reading one's own.
+// Design, the skeleton of sw_wavefront.cu's: one warp a row, 4 warps a
+// block (one warp an SM partition at the probe's 512 rows, as the SW
+// kernel's plan has it at 512 x 256 x 512). Thread l holds the R
+// consecutive lanes l*R .. l*R+R-1 of each of the four vectors in
+// registers, R = ceil(Lq / 32) rounded up to a power of two, a template
+// constant in {1, 2, 4, 8, 16} (R = 8 at Lq = 256, the SW plan's R at
+// that shape; breakmer_tpu_torch/tools/warp_layout.py is the same
+// layout in Python). A roll is an in-thread shift plus one __shfl_sync
+// that brings lane i-1 from the thread before; thread 0 takes lane Lq-1
+// from the thread that holds it (a lane past Lq never feeds it). So
+// rolls3 passes three values a step down the warp, the three that
+// sw_wavefront.cu passes with __shfl_up_sync (H, F and the target code),
+// and rolls3 / full is the share of the SW kernel's time that its
+// per-step exchange and a max a lane set. rolls0 keeps the registers and
+// the loop and replaces the rolls with the three maxes, no shuffle:
+// rolls3 - rolls0 is what the shuffles cost. The step loop is unrolled
+// by R, so the in-thread shift is register renaming, not moves. q and t
+// are read once and hd1 written once.
 //
-// What bounds it on this card: nothing but the barrier and the shared
-// memory latency of each step. The work a step is a few integer ops per
-// lane; the inputs are read once and the output written once. Measured
-// at 512 x 256 x 512 on an NVIDIA H100 80GB HBM3 at 700 W: rolls3 is
-// about 0.6 of sw_wavefront's time, rolls0 about 2.5 % below rolls3.
+// What bounds it on this card: the integer pipe. h, a max of four
+// values, is two max instructions a lane a step, since Hopper's VIMNMX3
+// takes three inputs (the rolls3 step compiles to SHFL, VIMNMX3 and
+// VIMNMX alone): 0.0120 ms at 512 x 256 x 512 with 768 steps (three
+// two-input maxes would be 0.0181 ms); the bytes are 0.4 MB. At one warp
+// a partition the chain of dependent maxes and shuffles a step is what
+// the design cannot hide.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-template <bool ROLLS>
-__global__ void sw_ceiling_probe_kernel(const int8_t* __restrict__ q,
-                                        const int8_t* __restrict__ t,
-                                        int Lq, int Lt, int steps,
-                                        int32_t* __restrict__ out) {
-  extern __shared__ int smem[];
-  // H(s % 3) at 0..2, F(s & 1) at 3..4, T(s & 1) at 5..6, each Lq long
-  int* H = smem;
-  int* F = smem + 3 * Lq;
-  int* Tj = smem + 5 * Lq;
-  const int b = blockIdx.x;
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const int8_t* qb = q + (size_t)b * Lq;
-  const int8_t* tb = t + (size_t)b * Lt;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 4;  // rows a block
 
-  // step s reads H(s-1) at (s+2)%3, H(s-2) at (s+1)%3, F(s-1) and T(s-1)
-  // at (s+1)&1; so H(-1) = q goes in buffer 2, H(-2), F(-1), T(-1) in 1
-  for (int i = tid; i < Lq; i += T) {
-    H[2 * Lq + i] = qb[i];
-    H[Lq + i] = 0;
-    F[Lq + i] = 0;
-    Tj[Lq + i] = tb[i];
+// roll by one lane across the warp into y: y[k] = x[k-1] in the thread,
+// y[0] from the thread before (thread 0: lane Lq-1 from the holder)
+template <int R, bool RAGGED>
+__device__ __forceinline__ void roll1(const int (&x)[R], int (&y)[R], int src, bool holder,
+                                      int last) {
+  int snd = x[R - 1];
+  if (RAGGED && holder) {  // Lq-1 sits before the holder's last element
+#pragma unroll
+    for (int k = 0; k < R - 1; ++k) snd = k == last ? x[k] : snd;
   }
-  __syncthreads();
+  y[0] = __shfl_sync(FULL, snd, src);
+#pragma unroll
+  for (int k = 1; k < R; ++k) y[k] = x[k - 1];
+}
 
-  for (int s = 0; s < steps; ++s) {
-    int* hc = H + (s % 3) * Lq;
-    const int* h1 = H + ((s + 2) % 3) * Lq;
-    const int* h2 = H + ((s + 1) % 3) * Lq;
-    int* fc = F + (s & 1) * Lq;
-    const int* f1 = F + ((s + 1) & 1) * Lq;
-    int* tc = Tj + (s & 1) * Lq;
-    const int* t1 = Tj + ((s + 1) & 1) * Lq;
-    for (int i = tid; i < Lq; i += T) {
-      int a, bb, c;
-      if (ROLLS) {
-        const int n = i == 0 ? Lq - 1 : i - 1;
-        a = h2[n];
-        bb = f1[n];
-        c = t1[n];
-      } else {
-        a = max(h2[i], 1);
-        bb = max(f1[i], 2);
-        c = max(t1[i], 3);
+template <int R, bool ROLLS, bool RAGGED>
+__global__ void __launch_bounds__(WARPS * 32)
+sw_ceiling_probe_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t, int B,
+                        int Lq, int Lt, int steps, int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= B) return;  // a whole warp: no shuffle waits on it
+  const int first = lane * R;
+  const int n = min(max(Lq - first, 0), R);  // the thread's lanes inside Lq
+  const int holder = (Lq - 1) / R;
+  const int last = (Lq - 1) - holder * R;
+  const int src = lane == 0 ? holder : lane - 1;
+  const bool is_holder = lane == holder;
+  const int8_t* qb = q + (size_t)row * Lq + first;
+  const int8_t* tb = t + (size_t)row * Lt + first;
+
+  int hd1[R], hd2[R], fd1[R], tj[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    hd1[k] = k < n ? qb[k] : 0;
+    tj[k] = k < n ? tb[k] : 0;
+    hd2[k] = 0;
+    fd1[k] = 0;
+  }
+
+  auto step = [&]() {
+    int a[R], b[R], c[R];
+    if (ROLLS) {
+      roll1<R, RAGGED>(hd2, a, src, is_holder, last);
+      roll1<R, RAGGED>(fd1, b, src, is_holder, last);
+      roll1<R, RAGGED>(tj, c, src, is_holder, last);
+    } else {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        a[k] = max(hd2[k], 1);
+        b[k] = max(fd1[k], 2);
+        c[k] = max(tj[k], 3);
       }
-      hc[i] = max(max(a, bb), max(c, h1[i]));
-      fc[i] = bb;
-      tc[i] = c;
     }
-    __syncthreads();
-  }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int h = max(max(a[k], b[k]), max(c[k], hd1[k]));
+      hd2[k] = hd1[k];
+      hd1[k] = h;
+      fd1[k] = b[k];
+      tj[k] = c[k];
+    }
+  };
 
-  const int* last = H + ((steps + 2) % 3) * Lq;  // H(steps - 1)
-  for (int i = tid; i < Lq; i += T) out[(size_t)b * Lq + i] = last[i];
+  int s = 0;
+  for (; s + R <= steps; s += R) {
+#pragma unroll
+    for (int u = 0; u < R; ++u) step();
+  }
+#pragma unroll 1
+  for (; s < steps; ++s) step();
+
+  int32_t* ob = out + (size_t)row * Lq + first;
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (k < n) ob[k] = hd1[k];
+}
+
+template <int R>
+cudaError_t launch(const int8_t* q, const int8_t* t, int B, int Lq, int Lt, int steps,
+                   bool rolls, int32_t* out, cudaStream_t stream) {
+  const bool ragged = Lq % R != 0;
+  auto kern = rolls ? (ragged ? sw_ceiling_probe_kernel<R, true, true>
+                              : sw_ceiling_probe_kernel<R, true, false>)
+                    : sw_ceiling_probe_kernel<R, false, false>;
+  kern<<<(B + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(q, t, B, Lq, Lt, steps, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory a launch needs: 7 int32 vectors of Lq.
-long long sw_ceiling_probe_smem_bytes(int Lq) { return 7LL * Lq * 4; }
-
-// One block per row on ``stream``; returns the cudaError_t of the launch.
-// q [B, Lq] and t [B, Lt] int8 (Lt >= Lq), out [B, Lq] int32, all device
-// pointers.
-int sw_ceiling_probe_launch(const void* q, const void* t, int B, int Lq,
-                            int Lt, int steps, int rolls, int threads,
-                            void* out, void* stream) {
-  const long long smem = sw_ceiling_probe_smem_bytes(Lq);
-  auto kern = rolls ? sw_ceiling_probe_kernel<true>
-                    : sw_ceiling_probe_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<B, threads, (size_t)smem, (cudaStream_t)stream>>>(
-      (const int8_t*)q, (const int8_t*)t, Lq, Lt, steps, (int32_t*)out);
-  return (int)cudaGetLastError();
+// One warp a row, R lanes a thread, on ``stream``; returns the
+// cudaError_t of the launch. q [B, Lq] and t [B, Lt] int8 (Lt >= Lq),
+// out [B, Lq] int32, all device pointers; B > 0, 1 <= Lq <= 32 R, R in
+// {1, 2, 4, 8, 16} (warp_layout.py picks it).
+int sw_ceiling_probe_launch(const void* q, const void* t, int B, int Lq, int Lt, int steps,
+                            int rolls, int R, void* out, void* stream) {
+  if (B <= 0 || Lq < 1 || Lq > 32 * R || Lt < Lq || steps < 0)
+    return (int)cudaErrorInvalidValue;
+  const int8_t* qp = (const int8_t*)q;
+  const int8_t* tp = (const int8_t*)t;
+  int32_t* op = (int32_t*)out;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (R) {
+    case 1: return (int)launch<1>(qp, tp, B, Lq, Lt, steps, rolls, op, s);
+    case 2: return (int)launch<2>(qp, tp, B, Lq, Lt, steps, rolls, op, s);
+    case 4: return (int)launch<4>(qp, tp, B, Lq, Lt, steps, rolls, op, s);
+    case 8: return (int)launch<8>(qp, tp, B, Lq, Lt, steps, rolls, op, s);
+    case 16: return (int)launch<16>(qp, tp, B, Lq, Lt, steps, rolls, op, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

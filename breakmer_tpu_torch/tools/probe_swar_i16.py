@@ -3,31 +3,40 @@
 Port of ``tools/probe_swar_i16.py``: the same 13 probe bodies on the same
 [16, 256] inputs (seed 0), each as an op of the hand-written kernel
 ``csrc/probe_i16.cu`` (row-pair packed s16x2 words, Hopper DPX where it
-fits) beside its plain version, int16 torch ops on the unpacked
-[16, 256] tensors. The TPU probe asked which ops Mosaic lowers; here
-every op builds, so the question is whether the packed kernel is exact
-against the plain version, and what each costs:
+fits; one warp a row pair, the words in registers, a lane roll as one
+warp shuffle; ``plan`` is its layout) beside its plain version, int16
+torch ops on the unpacked [16, 256] tensors. The TPU probe asked which
+ops Mosaic lowers; here every op builds, so the question is whether the
+packed kernel is exact against the plain version, and what each costs:
 
     python -m breakmer_tpu_torch.tools.probe_swar_i16
 
 prints one line per op: its name, ``exact=True/False``, and the kernel's
 and the plain version's time in microseconds, as a call's wall time
 (CUDA events; both launch-bound at this shape) and as device time
-(``torch.profiler``). ``probe_swar_i16b`` shares the kernel and ``run_ops``.
+(``torch.profiler``, the kernels alone; and queued calls back to back,
+``timing.queued_ms``). ``probe_swar_i16b`` shares the kernel, ``launch``
+and ``run_ops``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from breakmer_tpu_torch import _build
+from breakmer_tpu_torch.tools import warp_layout
+
 SHAPE = (16, 256)  # the TPU probe's shape (its int16 sublane tile is 16)
 D = 77             # the diagonal index the best-update probes write
+RW_CHOICES = (1, 2, 4, 8, 16, 32)  # the kernel's lanes a thread: W <= 1024
 
 # kernel launches made by run_op (one per call on a CUDA tensor)
 LAUNCHES = 0
+_LAUNCH = None  # the kernel library's probe_i16_launch, at the first launch
 
 
 I16, I32 = torch.int16, torch.int32
@@ -108,30 +117,52 @@ OPS = [
 ]
 
 
-def launch(op: Op, *xs: torch.Tensor) -> torch.Tensor:
-    """One launch of ``csrc/probe_i16.cu`` for ``op`` on CUDA tensors
-    [R, W] (R even, W <= 1024); raises on anything it does not take.
-    Counts nothing: the probes' ``run_op`` count their own launches."""
-    from breakmer_tpu_torch import _build
+@functools.lru_cache(maxsize=None)
+def plan(W: int) -> warp_layout.Layout:
+    """The kernel's layout of a row of W lanes: ``per_thread`` is its RW
+    (8 at the probes' W = 256); raises ValueError unless 1 <= W <= 1024."""
+    return warp_layout.layout(W, RW_CHOICES)
 
-    x0 = xs[0]
-    if any(x.device != x0.device for x in xs) or x0.device.type != "cuda":
-        raise ValueError(f"{op.name}: inputs on {[str(x.device) for x in xs]}; "
-                         "all must be on one CUDA device")
-    R, W = x0.shape
-    if R % 2 or not 1 <= W <= 1024 or any(x.shape != x0.shape for x in xs):
-        raise ValueError(f"{op.name}: shapes {[tuple(x.shape) for x in xs]}")
+
+def refuse(op: Op, xs) -> None:
+    """Raise the error that says why ``launch`` does not take ``xs``."""
+    where = [str(x.device) for x in xs]
+    if len(set(where)) > 1 or xs[0].device.type != "cuda":
+        raise ValueError(f"{op.name}: inputs on {where}; all must be on one CUDA device")
     if any(x.dtype != op.in_dtype for x in xs):
         raise TypeError(f"{op.name}: {op.in_dtype} inputs required, "
                         f"got {[x.dtype for x in xs]}")
-    xs = [x.contiguous() for x in xs]
-    ptrs = [x.data_ptr() for x in xs] + [None] * (3 - len(xs))
-    out = torch.empty((R, W), dtype=op.out_dtype, device=x0.device)
-    lib = _build.library()
-    with torch.cuda.device(x0.device):
-        err = lib.probe_i16_launch(op.op_id, *ptrs, out.data_ptr(), R, W,
-                                   _build.stream_of(x0))
-    _build.check_launch(err, f"probe_i16 ({op.name})")
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError(f"{op.name}: contiguous inputs required")
+    raise ValueError(f"{op.name}: shapes {[tuple(x.shape) for x in xs]}; one [R, W] "
+                     "with R even and > 0 required")
+
+
+def launch(op: Op, *xs: torch.Tensor) -> torch.Tensor:
+    """One launch of ``csrc/probe_i16.cu`` for ``op`` on contiguous CUDA
+    tensors [R, W] of one card (R even, W <= 1024); raises on anything it
+    does not take. The checks are plain compares, once a call; the launch
+    goes through ``_build.launch``. Counts nothing: the probes'
+    ``run_op`` count their own launches."""
+    global _LAUNCH
+    x0 = xs[0]
+    index, shape = x0.get_device(), x0.shape
+    for x in xs:
+        if (x.get_device() != index or x.dtype is not op.in_dtype or x.shape != shape
+                or not x.is_contiguous()):
+            refuse(op, xs)
+    if index < 0 or len(shape) != 2 or shape[0] % 2 or not shape[0]:
+        refuse(op, xs)
+    R, W = shape
+    rw = plan(W).per_thread
+    out = torch.empty_like(x0) if op.out_dtype is op.in_dtype else \
+        torch.empty_like(x0, dtype=op.out_dtype)
+    if _LAUNCH is None:
+        _LAUNCH = _build.library().probe_i16_launch
+    n = len(xs)
+    _build.launch(_LAUNCH, index, op.name, op.op_id, x0.data_ptr(),
+                  xs[1].data_ptr() if n > 1 else None, xs[2].data_ptr() if n > 2 else None,
+                  out.data_ptr(), R, W, rw)
     return out
 
 
@@ -139,19 +170,23 @@ def run_op(op: Op, *xs: torch.Tensor) -> torch.Tensor:
     """``op`` on CUDA tensors through the kernel (launches or raises), on
     CPU tensors through its plain version."""
     global LAUNCHES
-    if all(x.device.type == "cpu" for x in xs):
+    if xs[0].is_cuda:
+        out = launch(op, *xs)
+        LAUNCHES += 1
+        return out
+    if all(x.is_cpu for x in xs):
         return op.plain(*xs)
-    out = launch(op, *xs)
-    LAUNCHES += 1
-    return out
+    refuse(op, xs)
 
 
 def run_ops(ops, run, arrays: dict, device) -> list:
     """Each op of ``ops`` through ``run`` on the card against its plain
     version, on the probe's numpy ``arrays``: one dict a op with
     ``exact``, the max abs error and the kernel's and the plain version's
-    wall (``us``) and device (``device_us``) times."""
-    from breakmer_tpu_torch.timing import cuda_ms, device_us
+    times in µs: a call's (``us``, CUDA events), the device's by the
+    profiler (``device_us``) and of queued calls back to back
+    (``queued_us``)."""
+    from breakmer_tpu_torch.timing import cuda_ms, device_us, queued_ms
 
     x = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     rows = []
@@ -165,7 +200,9 @@ def run_ops(ops, run, arrays: dict, device) -> list:
                          us=cuda_ms(lambda: run(op, *xs), reps=20) * 1e3,
                          plain_us=cuda_ms(lambda: op.plain(*xs), reps=20) * 1e3,
                          device_us=device_us(lambda: run(op, *xs)),
-                         plain_device_us=device_us(lambda: op.plain(*xs))))
+                         plain_device_us=device_us(lambda: op.plain(*xs)),
+                         queued_us=queued_ms(lambda: run(op, *xs)) * 1e3,
+                         plain_queued_us=queued_ms(lambda: op.plain(*xs)) * 1e3))
     return rows
 
 
@@ -182,8 +219,9 @@ def print_rows(rows) -> None:
     print(card_line())
     for r in rows:
         print(f"{r['name']:34s} exact={r['exact']}  kernel {r['us']:.2f} us "
-              f"({r['device_us']:.2f} on the device)  plain {r['plain_us']:.2f} us "
-              f"({r['plain_device_us']:.2f})")
+              f"({r['device_us']:.2f} on the device, {r['queued_us']:.2f} queued)  "
+              f"plain {r['plain_us']:.2f} us ({r['plain_device_us']:.2f}, "
+              f"{r['plain_queued_us']:.2f})")
     n_ok = sum(r["exact"] for r in rows)
     print(f"{n_ok}/{len(rows)} exact")
 

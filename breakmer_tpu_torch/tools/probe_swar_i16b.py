@@ -2,8 +2,8 @@
 
 Port of ``tools/probe_swar_i16b.py``: the same 9 probe bodies on the same
 [16, 256] inputs (seed 0), as ops of the kernel ``csrc/probe_i16.cu``
-(shared with ``probe_swar_i16``) beside their plain int16 torch
-versions. The emulated max ``a - (d & (d >> 15))`` and the emulated
+(shared with ``probe_swar_i16``, with its layout and launch path) beside
+their plain int16 torch versions. The emulated max ``a - (d & (d >> 15))`` and the emulated
 strict-greater select keep the TPU probe's arithmetic, so the kernel
 shows whether that emulation is exact on the card and what it costs next
 to the native s16x2 max of ``probe_swar_i16``:
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from breakmer_tpu_torch.tools.probe_swar_i16 import (
-    D, I32, SHAPE, Op, launch, print_rows, roll1, run_ops, substitution,
+    D, I32, SHAPE, Op, launch, print_rows, refuse, roll1, run_ops, substitution,
 )
 
 # kernel launches made by run_op (one per call on a CUDA tensor)
@@ -79,11 +79,13 @@ def run_op(op: Op, *xs: torch.Tensor) -> torch.Tensor:
     """``op`` on CUDA tensors through the kernel (launches or raises), on
     CPU tensors through its plain version."""
     global LAUNCHES
-    if all(x.device.type == "cpu" for x in xs):
+    if xs[0].is_cuda:
+        out = launch(op, *xs)
+        LAUNCHES += 1
+        return out
+    if all(x.is_cpu for x in xs):
         return op.plain(*xs)
-    out = launch(op, *xs)
-    LAUNCHES += 1
-    return out
+    refuse(op, xs)
 
 
 def main() -> None:

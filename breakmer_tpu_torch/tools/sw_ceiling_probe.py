@@ -7,33 +7,49 @@ max, ``rolls3``, or the rolls replaced by elementwise maxes, ``rolls0``)
 as the hand-written kernel ``csrc/sw_ceiling_probe.cu`` on a CUDA tensor
 and as ``stripped_plain`` on a CPU tensor. ``main`` times both forms and
 the production kernel (``sw_score_cuda(..., no_n=True)``) at the bench
-shape 512 x (256 x 512) and prints one JSON line:
+shape 512 x (256 x 512), each as device time of queued calls
+(``timing.queued_ms``; a call's host launch path is longer than rolls3
+itself), and prints one JSON line:
 
     python -m breakmer_tpu_torch.tools.sw_ceiling_probe
 
-``roll_bound_fraction`` = rolls3 / full: the probe's loop against the
-production kernel's time. The probe strips the first design of the SW
-kernel (one block a pair, a shared-memory round trip and a barrier a
-diagonal), so it measured that design's skeleton; against the
-warp-synchronous kernel, which has neither, it reads above 1. See the
-note in the .cu for what rolls0 keeps.
+The kernel strips the current SW kernel, ``csrc/sw_wavefront.cu``: one
+warp a row, R = ``plan(Lq).per_thread`` query lanes a thread in
+registers (8 at Lq = 256, as the SW plan has it there), and per step the
+three values the SW kernel passes down the warp (H, F and the target
+code) as three warp shuffles, with no shared memory and no barrier. So
+``roll_bound_fraction`` = rolls3 / full is the share of the SW kernel's
+device time that its per-step exchange and a max a lane set: near 1, the
+kernel is exchange-bound; well under 1, its cell arithmetic costs the
+rest. rolls0 keeps the registers and the loop without the shuffles.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 from typing import Optional
 
 import numpy as np
 import torch
 
+from breakmer_tpu_torch import _build
+from breakmer_tpu_torch.tools import warp_layout
+
 B, LQ, LT = 512, 256, 512
 U = 8  # the TPU loop's unroll; the default step count is a multiple of it
+R_CHOICES = (1, 2, 4, 8, 16)  # the kernel's lanes a thread: Lq <= 512
 
 # kernel launches made by stripped (one per call on a CUDA tensor)
 LAUNCHES = 0
+_LAUNCH = None  # the kernel library's sw_ceiling_probe_launch, at the first launch
 
-_MAX_THREADS = 256
+
+@functools.lru_cache(maxsize=None)
+def plan(Lq: int) -> warp_layout.Layout:
+    """The kernel's layout of a row of Lq lanes: ``per_thread`` is its R
+    (8 at the probe's Lq = 256); raises ValueError unless 1 <= Lq <= 512."""
+    return warp_layout.layout(Lq, R_CHOICES)
 
 
 def default_steps(Lq: int, Lt: int) -> int:
@@ -67,37 +83,32 @@ def stripped(q: torch.Tensor, t: torch.Tensor, do_rolls: bool,
              steps: Optional[int] = None) -> torch.Tensor:
     """``stripped_plain``'s result; on a CUDA tensor from the kernel (it
     launches or raises), on a CPU tensor from the plain version."""
-    global LAUNCHES
+    global LAUNCHES, _LAUNCH
     if q.device.type == "cpu" and t.device.type == "cpu":
         return stripped_plain(q, t, do_rolls, steps)
-    from breakmer_tpu_torch import _build
-
-    if q.device.type != "cuda" or t.device != q.device:
+    index = q.get_device()
+    if index < 0 or t.get_device() != index:
         raise ValueError(f"stripped: q on {q.device}, t on {t.device}; "
                          "both must be on one CUDA device")
-    if q.dtype != torch.int8 or t.dtype != torch.int8:
+    if q.dtype is not torch.int8 or t.dtype is not torch.int8:
         raise TypeError(f"stripped: int8 codes required, got {q.dtype}, {t.dtype}")
     if q.dim() != 2 or t.dim() != 2 or q.shape[0] != t.shape[0] or t.shape[1] < q.shape[1]:
         raise ValueError(f"stripped: shapes {tuple(q.shape)}, {tuple(t.shape)}")
+    if not (q.is_contiguous() and t.is_contiguous()):
+        raise ValueError("stripped: contiguous q and t required")
     Bq, Lq = q.shape
     Lt = t.shape[1]
     steps = default_steps(Lq, Lt) if steps is None else int(steps)
     if steps < 0:
         raise ValueError(f"stripped: steps={steps}")
-    q, t = q.contiguous(), t.contiguous()
-    out = torch.empty((Bq, Lq), dtype=torch.int32, device=q.device)
+    out = torch.empty_like(q, dtype=torch.int32)
     if Bq == 0 or Lq == 0:
         return out
-    lib = _build.library()
-    optin = torch.cuda.get_device_properties(q.device).shared_memory_per_block_optin
-    if lib.sw_ceiling_probe_smem_bytes(Lq) > optin:
-        raise ValueError(f"stripped: Lq={Lq} needs more shared memory than a block has")
-    threads = min(_MAX_THREADS, -(-Lq // 32) * 32)
-    with torch.cuda.device(q.device):
-        err = lib.sw_ceiling_probe_launch(
-            q.data_ptr(), t.data_ptr(), Bq, Lq, Lt, steps, int(bool(do_rolls)),
-            threads, out.data_ptr(), _build.stream_of(q))
-    _build.check_launch(err, f"sw_ceiling_probe (B={Bq}, Lq={Lq}, steps={steps})")
+    R = plan(Lq).per_thread
+    if _LAUNCH is None:
+        _LAUNCH = _build.library().sw_ceiling_probe_launch
+    _build.launch(_LAUNCH, index, "sw_ceiling_probe", q.data_ptr(), t.data_ptr(), Bq, Lq, Lt,
+                  steps, int(bool(do_rolls)), R, out.data_ptr())
     LAUNCHES += 1
     return out
 
@@ -111,16 +122,16 @@ def inputs(device) -> tuple:
 
 
 def measure(device) -> dict:
-    """The probe's numbers on the card (the caller has checked the
-    kernel against the plain version)."""
+    """The probe's numbers on the card, each the device time of queued
+    calls (the caller has checked the kernel against the plain version)."""
     from breakmer_tpu_torch.ops.sw_cuda import sw_score_cuda
-    from breakmer_tpu_torch.timing import card_line, cuda_ms
+    from breakmer_tpu_torch.timing import card_line, queued_ms
 
     q, t = inputs(device)
     cells = B * LQ * LT
-    t3 = cuda_ms(lambda: stripped(q, t, True)) / 1e3
-    t0 = cuda_ms(lambda: stripped(q, t, False)) / 1e3
-    tf = cuda_ms(lambda: sw_score_cuda(q, t, no_n=True)) / 1e3
+    t3 = queued_ms(lambda: stripped(q, t, True)) / 1e3
+    t0 = queued_ms(lambda: stripped(q, t, False)) / 1e3
+    tf = queued_ms(lambda: sw_score_cuda(q, t, no_n=True)) / 1e3
     return {
         "metric": "sw_ceiling_probe",
         "shape": [B, LQ, LT],

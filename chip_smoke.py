@@ -25,7 +25,12 @@ phase's wall time is printed):
      bound (the timed run records nothing);
   7. the probe kernels against their plain versions on the card, exact:
      the stripped SW loop in both forms at steps 1, 7, 255 and the
-     default, every int16 op of both int16 probes, the running max;
+     default, every int16 op of both int16 probes, the running max; each
+     kernel's device time (queued calls) and a call's time beside its
+     bound; the ceiling probe's rolls0 and roll_bound_fraction against the
+     SW kernel; the int16 probe's launch path step by step (1,000 calls a
+     step); every int16 op with a one-call torch counterpart timed against
+     it in turns (kernel, torch, torch, kernel);
   8. the batched panel path on the same 100-gene panel (batch_regions,
      32 regions a packed k-mer launch) on the card, nprocs 1 (cold, then
      warm) and 4: svs.out and the VCF byte-identical to phase 6's serial
@@ -530,13 +535,177 @@ I16_LIBRARY = {  # int16 probe op: the one torch call computing the same functio
     "i16 add splat-int16": lambda a: torch.add(a, 6), "i16 add py-int": lambda a: torch.add(a, 6),
     "i16 add full-array const": lambda a: torch.add(a, 6), "i16 emulated max": torch.maximum,
 }
+I16_CALL_TARGET = 1.25  # a kernel call's time over its one torch call's, at most
+LAUNCH_STEP_CALLS = 1000
+
+
+def launch_path_steps(dev, card):
+    """The int16 probe's launch path on ``i16 maximum`` at [16, 256], step
+    by step: each step run LAUNCH_STEP_CALLS times alone (host clock, µs
+    a call), first the steps of the path the wrapper had before the lean
+    one (generator checks over ``torch.device`` objects, ``.contiguous()``
+    and a pointer list, ``torch.empty``, ``_build.library()``, the
+    ``torch.cuda.device`` context, a ``Stream`` object for the handle, the
+    ctypes call, ``check_launch`` on every call), then the lean path's.
+    Returns {"former": µs, "lean": µs} of a whole call."""
+    from breakmer_tpu_torch import _build
+    from breakmer_tpu_torch.tools import probe_swar_i16 as i16
+
+    op = i16.OPS[0]
+    x = {k: torch.from_numpy(v).to(dev) for k, v in i16.inputs().items()}
+    xs = [x[a] for a in op.args]
+    x0 = xs[0]
+    index = x0.get_device()
+    R, W = x0.shape
+    rw = i16.plan(W).per_thread
+    lib = _build.library()
+    fn = lib.probe_i16_launch
+    out = torch.empty((R, W), dtype=op.out_dtype, device=dev)
+    ptrs = [x.data_ptr() for x in xs] + [None]
+    stream = _build.stream_of(x0)
+
+    def former_import():
+        from breakmer_tpu_torch import _build  # noqa: F401
+
+    def former_context():
+        with torch.cuda.device(x0.device):
+            pass
+
+    def former_call():  # the whole former path, as it ran
+        all(x.device.type == "cpu" for x in xs)
+        from breakmer_tpu_torch import _build as b
+        x0 = xs[0]
+        if any(x.device != x0.device for x in xs) or x0.device.type != "cuda":
+            raise SmokeFailure("device")
+        R, W = x0.shape
+        if R % 2 or not 1 <= W <= 1024 or any(x.shape != x0.shape for x in xs):
+            raise SmokeFailure("shape")
+        if any(x.dtype != op.in_dtype for x in xs):
+            raise SmokeFailure("dtype")
+        ys = [x.contiguous() for x in xs]
+        ps = [y.data_ptr() for y in ys] + [None] * (3 - len(ys))
+        o = torch.empty((R, W), dtype=op.out_dtype, device=x0.device)
+        lib = b.library()
+        with torch.cuda.device(x0.device):
+            err = lib.probe_i16_launch(op.op_id, *ps, o.data_ptr(), R, W, rw, b.stream_of(x0))
+        b.check_launch(err, f"probe_i16 ({op.name})")
+
+    def lean_checks():
+        index, shape = x0.get_device(), x0.shape
+        for x in xs:
+            if (x.get_device() != index or x.dtype is not op.in_dtype or x.shape != shape
+                    or not x.is_contiguous()):
+                raise SmokeFailure("lean checks")
+
+    steps = [
+        ("former: CPU check (generator over .device.type)",
+         lambda: all(x.device.type == "cpu" for x in xs)),
+        ("former: import of _build in the call", former_import),
+        ("former: device checks (generators, torch.device ==)",
+         lambda: any(x.device != x0.device for x in xs) or x0.device.type != "cuda"),
+        ("former: shape checks (generator)",
+         lambda: R % 2 or not 1 <= W <= 1024 or any(x.shape != x0.shape for x in xs)),
+        ("former: dtype checks (generator)", lambda: any(x.dtype != op.in_dtype for x in xs)),
+        ("former: .contiguous() and the pointer list",
+         lambda: [y.data_ptr() for y in [x.contiguous() for x in xs]] + [None]),
+        ("former: torch.empty output",
+         lambda: torch.empty((R, W), dtype=op.out_dtype, device=x0.device)),
+        ("former: _build.library()", _build.library),
+        ("former: torch.cuda.device context (enter, exit)", former_context),
+        ("former: _build.stream_of (a Stream object)", lambda: _build.stream_of(x0)),
+        ("ctypes launch (9 arguments, launches)",
+         lambda: lib.probe_i16_launch(op.op_id, *ptrs, out.data_ptr(), R, W, rw, stream)),
+        ("former: check_launch(0) with its f-string",
+         lambda: _build.check_launch(0, f"probe_i16 ({op.name})")),
+        ("former: the whole path (launches)", former_call),
+        ("lean: checks (get_device, dtype is, shape, is_contiguous)", lean_checks),
+        ("lean: plan(W) (cached)", lambda: i16.plan(W)),
+        ("lean: new_empty output", lambda: x0.new_empty((R, W), dtype=op.out_dtype)),
+        ("lean: torch.empty_like output", lambda: torch.empty_like(x0)),
+        ("lean: torch.empty_like output, dtype given",
+         lambda: torch.empty_like(x0, dtype=torch.int32)),
+        ("ctypes call refused in C (op -1, no launch)",
+         lambda: fn(-1, *ptrs, out.data_ptr(), R, W, rw, stream)),
+        ("lean: torch.cuda.current_device()", torch.cuda.current_device),
+        ("lean: raw current stream", lambda: torch._C._cuda_getCurrentRawStream(index)),
+        ("lean: _build.launch (launches)",
+         lambda: _build.launch(fn, index, op.name, op.op_id, *ptrs, out.data_ptr(), R, W, rw)),
+        ("lean: probe_swar_i16.launch (launches)", lambda: i16.launch(op, *xs)),
+        ("torch.maximum, the library call", lambda: torch.maximum(*xs)),
+    ]
+    us = {}
+    for name, step in steps:
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LAUNCH_STEP_CALLS):
+            step()
+        us[name] = (time.perf_counter() - t0) / LAUNCH_STEP_CALLS * 1e6
+        torch.cuda.synchronize()
+        print(f"  launch path step {name:58s} {us[name]:8.3f} us a call "
+              f"({LAUNCH_STEP_CALLS} calls, host clock) [{card}]", flush=True)
+    return {"former": us["former: the whole path (launches)"],
+            "lean": us["lean: probe_swar_i16.launch (launches)"]}
+
+
+def turns_us(a, b, reps: int = 400):
+    """A call's time of ``a`` and of ``b`` in µs (CUDA events around one
+    call, after a synchronize), taken in turns a, b, b, a, a, b, ...:
+    the medians of each one's ``reps`` readings."""
+    times = ([], [])
+    for fn in (a, b):
+        fn()
+    for r in range(reps):
+        for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (a, b)[k]()
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end) * 1e3)
+    return tuple(float(np.median(t)) for t in times)
+
+
+def i16_turns(mod, dev, card):
+    """Each op of ``mod`` (an int16 probe) with a one-call torch
+    counterpart: a call's time of the kernel and of that call in turns
+    (``turns_us``), their ratio against I16_CALL_TARGET, and the device
+    time of both (profiler and queued calls). Returns {op name: [kernel
+    µs, torch µs, ratio]}."""
+    from breakmer_tpu_torch.timing import device_us, queued_ms
+
+    x = {k: torch.from_numpy(v).to(dev) for k, v in mod.inputs().items()}
+    ratios = {}
+    for op in mod.OPS:
+        lib = I16_LIBRARY.get(op.name)
+        if lib is None:
+            continue
+        args = [x[a] for a in op.args]
+        kern = lambda: mod.run_op(op, *args)  # noqa: E731
+        torch_call = lambda: lib(*args)  # noqa: E731
+        k_us, t_us = turns_us(kern, torch_call)
+        ratio = k_us / t_us
+        ratios[op.name] = [k_us, t_us, ratio]
+        print(f"  {mod.__name__.rsplit('.', 1)[1]} {op.name:26s} a call: kernel {k_us:.2f} us, "
+              f"torch {t_us:.2f} us, ratio {ratio:.3f} "
+              f"({'within' if ratio <= I16_CALL_TARGET else 'over'} {I16_CALL_TARGET}); "
+              f"device us kernel {device_us(kern):.2f} (queued {queued_ms(kern) * 1e3:.2f}), "
+              f"torch {device_us(torch_call):.2f} (queued {queued_ms(torch_call) * 1e3:.2f}) "
+              f"[{card}]", flush=True)
+    return ratios
 
 
 def phase_probes(dev, card):
     """Each probe kernel against its plain version at the probes' shapes,
-    with its bound and, where one torch call computes the same function,
-    that call's time: (kernel rows for the table, keyed by kernel name)."""
-    from breakmer_tpu_torch.timing import cuda_ms, device_us
+    with a call's time (CUDA events), its device time (queued calls,
+    ``timing.queued_ms``; the profiler's too for the short kernels), its
+    bound and, where one torch call computes the same function, that
+    call's time; the ceiling probe's rolls0 and roll_bound_fraction
+    against the SW kernel at its shape; the int16 probe's launch path
+    step by step: (kernel rows for the table, keyed by kernel name)."""
+    from breakmer_tpu_torch.timing import cuda_ms, device_us, queued_ms
     from breakmer_tpu_torch.tools import probe_mosaic_cummax as cm
     from breakmer_tpu_torch.tools import probe_swar_i16 as i16
     from breakmer_tpu_torch.tools import probe_swar_i16b as i16b
@@ -546,59 +715,76 @@ def phase_probes(dev, card):
     ceil.check(dev)  # raises on any difference
     q, t = ceil.inputs(dev)
     steps = ceil.default_steps(ceil.LQ, ceil.LT)
-    rows["sw_ceiling_probe"] = dict(  # rolls3: three max a lane a step
+    m = ceil.measure(dev)  # queued device times: rolls3, rolls0, the SW kernel
+    row = rows["sw_ceiling_probe"] = dict(  # rolls3, the form that strips the SW kernel
         max_abs_err=0, shape=[ceil.B, ceil.LQ, ceil.LT],
-        ms=cuda_ms(lambda: ceil.stripped(q, t, True)),
-        plain_ms=cuda_ms(lambda: ceil.stripped_plain(q, t, True)),
-        library_ms=None,
+        ms=cuda_ms(lambda: ceil.stripped(q, t, True)), device_ms=m["rolls3_s"] * 1e3,
+        plain_ms=cuda_ms(lambda: ceil.stripped_plain(q, t, True)), library_ms=None,
+        rolls0_device_ms=m["rolls0_s"] * 1e3, sw_full_device_ms=m["full_s"] * 1e3,
+        roll_bound_fraction=m["roll_bound_fraction"],
+        # h = max of four values a lane a step: two instructions on this card,
+        # whose VIMNMX3 takes three inputs (the kernel's step compiles to
+        # SHFL, VIMNMX3 and VIMNMX alone); three two-input maxes would read
+        # 1.5x this bound
         bound=bound(ceil.B * (ceil.LQ + ceil.LT) + 4 * ceil.B * ceil.LQ,
-                    int32_ops=3 * ceil.B * ceil.LQ * steps))
-    print(f"  ceiling probe: kernel == plain, both forms, steps 1/7/255/"
-          f"{ceil.default_steps(ceil.LQ, ceil.LT)}; rolls3 kernel "
-          f"{rows['sw_ceiling_probe']['ms']:.4f} ms, plain "
-          f"{rows['sw_ceiling_probe']['plain_ms']:.2f} ms [{card}]", flush=True)
+                    int32_ops=2 * ceil.B * ceil.LQ * steps))
+    max3_ms = bound(0, int32_ops=3 * ceil.B * ceil.LQ * steps)[0]
+    print(f"  ceiling probe: kernel == plain, both forms, steps 1/7/255/{steps}; R "
+          f"{ceil.plan(ceil.LQ).per_thread}; rolls3 {row['device_ms']:.4f} ms on the device "
+          f"({row['bound'][0] / row['device_ms']:.1%} of the {row['bound'][0]:.4f} ms bound "
+          f"at 2 instructions a lane a step; {max3_ms / row['device_ms']:.1%} of "
+          f"{max3_ms:.4f} ms at 3 two-input maxes), "
+          f"{row['ms']:.4f} ms a call; rolls0 {row['rolls0_device_ms']:.4f} ms; SW kernel "
+          f"(no_n) {row['sw_full_device_ms']:.4f} ms; roll_bound_fraction "
+          f"{row['roll_bound_fraction']:.4f}; plain {row['plain_ms']:.2f} ms [{card}]",
+          flush=True)
+    launch_us = launch_path_steps(dev, card)
     for name, mod in (("probe_i16", i16), ("probe_i16b", i16b)):
         ops = mod.run_ops(mod.OPS, mod.run_op, mod.inputs(), dev)
         bad = [r["name"] for r in ops if not r["exact"]]
         check(not bad, f"{name}: kernel != plain for {bad}")
+        for r in ops:
+            print(f"  {name} {r['name']:32s} exact  kernel {r['us']:.2f} us "
+                  f"({r['device_us']:.2f} device, {r['queued_us']:.2f} queued)  plain "
+                  f"{r['plain_us']:.2f} us ({r['plain_device_us']:.2f} device, "
+                  f"{r['plain_queued_us']:.2f} queued) [{card}]", flush=True)
+        ratios = i16_turns(mod, dev, card)
         mini = next(r for r in ops if r["name"].startswith("fused mini"))
         n = i16.SHAPE[0] * i16.SHAPE[1]
         rows[name] = dict(max_abs_err=max(r["max_abs_err"] for r in ops),
                           shape=list(i16.SHAPE), op=mini["name"],
                           ms=mini["us"] / 1e3, plain_ms=mini["plain_us"] / 1e3,
-                          device_ms=mini["device_us"] / 1e3,
+                          device_ms=mini["queued_us"] / 1e3,
+                          profiler_device_ms=mini["device_us"] / 1e3,
                           plain_device_ms=mini["plain_device_us"] / 1e3,
                           library_ms=None,  # no one torch call runs the recurrence
+                          library_call_ratio=ratios, launch_path_us=launch_us,
                           bound=bound(2 * 4 * n + 2 * n, int16_ops=MINI_OPS * n))
-        x = {k: torch.from_numpy(v).to(dev) for k, v in mod.inputs().items()}
-        for r in ops:
-            lib = I16_LIBRARY.get(r["name"])
-            lib_txt = "no one torch call"
-            if lib is not None:
-                args = [x[a] for a in next(op for op in mod.OPS if op.name == r["name"]).args]
-                lib_txt = (f"library {cuda_ms(lambda: lib(*args), reps=20) * 1e3:.2f} us "
-                           f"({device_us(lambda: lib(*args)):.2f} device)")
-            print(f"  {name} {r['name']:32s} exact  kernel {r['us']:.2f} us "
-                  f"({r['device_us']:.2f} device)  plain {r['plain_us']:.2f} us "
-                  f"({r['plain_device_us']:.2f} device)  {lib_txt}", flush=True)
+        over = {k: round(v[2], 3) for k, v in ratios.items() if v[2] > I16_CALL_TARGET}
+        print(f"  {name}: {len(ratios)} ops with a torch counterpart, a call at most "
+              f"{max(v[2] for v in ratios.values()):.3f}x the torch call's; over "
+              f"{I16_CALL_TARGET}: {over or 'none'}", flush=True)
     r = cm.measure(dev)
     check(r["exact"], "cummax kernel != plain")
     x = torch.from_numpy(cm.inputs()).to(dev)
     lib_us = cuda_ms(lambda: torch.cummax(x, dim=-1), reps=20) * 1e3
     lib_dev = device_us(lambda: torch.cummax(x, dim=-1))
+    queued_us = queued_ms(lambda: cm.cummax(x)) * 1e3
     n = cm.SHAPE[0] * cm.SHAPE[1]
     rows["probe_cummax"] = dict(max_abs_err=r["max_abs_err"], shape=list(cm.SHAPE),
                                 ms=r["us"] / 1e3, plain_ms=r["plain_us"] / 1e3,
-                                device_ms=r["device_us"] / 1e3,
+                                device_ms=queued_us / 1e3,
+                                profiler_device_ms=r["device_us"] / 1e3,
                                 plain_device_ms=r["plain_device_us"] / 1e3,
                                 library_ms=lib_us / 1e3, library_device_ms=lib_dev / 1e3,
                                 bound=bound(8 * n, int32_ops=n))
-    print(f"  cummax {cm.SHAPE}: exact; kernel {r['us']:.2f} us "
-          f"({r['device_us']:.2f} device), plain {r['plain_us']:.2f} us "
+    print(f"  cummax {cm.SHAPE}: exact; kernel {r['us']:.2f} us ({r['device_us']:.2f} "
+          f"device, {queued_us:.2f} queued), plain {r['plain_us']:.2f} us "
           f"({r['plain_device_us']:.2f} device), torch.cummax {lib_us:.2f} us "
           f"({lib_dev:.2f} device) [{card}]", flush=True)
     for name, row in rows.items():
-        print(f"  {name}: bound {row['bound'][0]:.3g} ms ({row['bound'][1]})", flush=True)
+        print(f"  {name}: bound {row['bound'][0]:.3g} ms ({row['bound'][1]}); device "
+              f"{row['device_ms']:.4g} ms (queued), a call {row['ms']:.4g} ms", flush=True)
     torch.cuda.synchronize()
     return rows
 
@@ -1183,6 +1369,9 @@ def main() -> int:
                       "shape": row["shape"],
                       **{k: row[k] for k in ("op", "device_ms", "profiler_device_ms",
                                              "plain_device_ms", "library_device_ms",
+                                             "rolls0_device_ms", "sw_full_device_ms",
+                                             "roll_bound_fraction", "library_call_ratio",
+                                             "launch_path_us",
                                              "batched_path_launches", "sharded_step_launches",
                                              "mesh_runner_launches",
                                              "sharded_index_runner_launches",

@@ -135,9 +135,12 @@ from breakmer_tpu_torch.tools import probe_swar_i16b as i16b  # noqa: E402
 from breakmer_tpu_torch.tools import sw_ceiling_probe as ceil  # noqa: E402
 
 
+_CEIL_STEPS = [0, 1, 7, 8, 9, 31, 32, 33, 255, None]  # around R = 8, the unroll
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("do_rolls", [True, False])
-@pytest.mark.parametrize("steps", [0, 1, 7, 255, None])
+@pytest.mark.parametrize("steps", _CEIL_STEPS)
 def test_ceiling_probe_kernel_matches_plain(card, do_rolls, steps):
     q, t = ceil.inputs(card)
     before = ceil.LAUNCHES
@@ -148,15 +151,18 @@ def test_ceiling_probe_kernel_matches_plain(card, do_rolls, steps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Lq,Lt", [(3, 300, 400), (5, 33, 33), (1, 1, 2)])
+@pytest.mark.parametrize("B,Lq,Lt", [(5, 1, 2), (3, 31, 40), (6, 32, 32), (5, 33, 33),
+                                     (9, 256, 300), (3, 300, 400), (2, 512, 520)])
 def test_ceiling_probe_kernel_other_shapes(card, B, Lq, Lt):
+    """Every R (1 at Lq = 1 to 16 at 512), ragged and whole last threads,
+    rows past one block; each step count around the unroll by R."""
     rng = np.random.default_rng(Lq)
     q = torch.from_numpy(rng.integers(-50, 50, (B, Lq)).astype(np.int8)).to(card)
     t = torch.from_numpy(rng.integers(-50, 50, (B, Lt)).astype(np.int8)).to(card)
     for do_rolls in (True, False):
-        for steps in (1, 5, Lq - 1, Lq + 3):
+        for steps in _CEIL_STEPS + [Lq - 1, Lq + 3]:
             assert torch.equal(ceil.stripped(q, t, do_rolls, steps),
-                               ceil.stripped_plain(q, t, do_rolls, steps))
+                               ceil.stripped_plain(q, t, do_rolls, steps)), (do_rolls, steps)
 
 
 @pytest.mark.cuda
@@ -168,13 +174,8 @@ def test_probe_i16_ops_match_plain(card, mod):
     assert mod.LAUNCHES > before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 256), (4, 1024), (2, 33)])
-def test_probe_i16_ops_wrap_like_numpy(card, shape):
-    """Full-range int16 inputs: every op wraps as the plain int16 torch op
-    does. The indicator op is left out: the kernel's compare equals the
-    probe's indicator arithmetic only while |h - bh| < 2^15."""
-    rng = np.random.default_rng(shape[1])
+def _full_range(shape, seed):
+    rng = np.random.default_rng(seed)
     full = lambda: rng.integers(-32768, 32768, shape).astype(np.int16)  # noqa: E731
     arrays = {"A": full(), "B": full(), "H": full(), "BH": full(), "BD": full(),
               "M": rng.integers(0, 2, shape).astype(np.int16) * -1,
@@ -183,9 +184,62 @@ def test_probe_i16_ops_wrap_like_numpy(card, shape):
               "Q32": rng.integers(0, 5, shape).astype(np.int32),
               "T32": rng.integers(0, 5, shape).astype(np.int32)}
     arrays["A32"] = rng.integers(-2**31, 2**31, shape).astype(np.int32)
-    ops = [op for op in i16.OPS + i16b.OPS if op.name != "indicator-select (bd update)"]
-    rows = i16.run_ops(ops, i16.run_op, arrays, card)
+    return arrays
+
+
+# the indicator op is left out: the kernel's compare equals the probe's
+# indicator arithmetic only while |h - bh| < 2^15
+_WRAP_OPS = [op for op in i16.OPS + i16b.OPS if op.name != "indicator-select (bd update)"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 256), (4, 1024), (2, 33), (2, 1), (2, 544), (18, 100)])
+def test_probe_i16_ops_wrap_like_numpy(card, shape):
+    """Full-range int16 inputs: every op wraps as the plain int16 torch op
+    does; every RW, ragged last threads, and row pairs past one block."""
+    rows = i16.run_ops(_WRAP_OPS, i16.run_op, _full_range(shape, shape[1]), card)
     assert [r["name"] for r in rows if not r["exact"]] == []
+
+
+@pytest.mark.cuda
+def test_probe_i16_ops_on_unaligned_inputs(card):
+    """Inputs and output whose addresses are not aligned to the wide
+    loads: the kernel loads and stores element by element, exact."""
+    def unaligned(a):
+        flat = torch.empty(a.size + 1, dtype=torch.from_numpy(a).dtype, device=card)
+        x = flat[1:].view(a.shape)
+        x.copy_(torch.from_numpy(a))
+        assert x.data_ptr() % 16 and x.is_contiguous()
+        return x
+
+    arrays = _full_range((4, 256), 3)
+    x = {k: unaligned(v) for k, v in arrays.items()}
+    for op in _WRAP_OPS:
+        xs = [x[a] for a in op.args]
+        assert torch.equal(i16.run_op(op, *xs), op.plain(*xs)), op.name
+
+
+@pytest.mark.cuda
+def test_redesigned_probe_wrappers_count_one_launch_a_call(card):
+    """One call of each wrapper: exactly one launch on its count; a width
+    the layout refuses raises before any launch."""
+    q, t = ceil.inputs(card)
+    x = {k: torch.from_numpy(v).to(card) for k, v in i16.inputs().items()}
+    calls = [(ceil, lambda: ceil.stripped(q, t, True, 9)),
+             (i16, lambda: i16.run_op(i16.OPS[9], x["A"])),
+             (i16b, lambda: i16b.run_op(i16b.OPS[7], x["Q32"], x["T32"]))]
+    for mod, call in calls:
+        before = mod.LAUNCHES
+        call()
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == before + 1, mod.__name__
+    before = ceil.LAUNCHES, i16.LAUNCHES
+    wide = torch.zeros((2, 513), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="lanes"):
+        ceil.stripped(wide, wide, True, 3)
+    with pytest.raises(ValueError, match="lanes"):
+        i16.run_op(i16.OPS[0], *(torch.zeros((2, 1025), dtype=torch.int16, device=card),) * 2)
+    assert (ceil.LAUNCHES, i16.LAUNCHES) == before
 
 
 @pytest.mark.cuda

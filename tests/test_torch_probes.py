@@ -271,3 +271,116 @@ def test_device_ns_counts_every_device_activity():
               Event(DeviceType.CUDA, 21_000, 101_000)]  # a kernel no torch op launched
     assert device_ns(events) == 1_200 + 80_000
     assert device_ns([]) == 0
+
+
+# -- the warp layout of the probe kernels (one warp a row, lanes in
+# -- registers, a lane roll as an in-thread shift plus one shuffle) ---------
+
+from breakmer_tpu_torch import _build  # noqa: E402
+from breakmer_tpu_torch.tools import warp_layout  # noqa: E402
+
+_KERNELS = {"ceiling": ceil, "i16": i16}
+_MAX_WIDTH = {"ceiling": 512, "i16": 1024}
+_ROLL_CASES = [(k, w) for k in _KERNELS for w in (1, 2, 31, 32, 33, 255, 256, 300, 512, 1024)
+               if w <= _MAX_WIDTH[k]]
+
+
+def _warp_roll(x: np.ndarray, lay: warp_layout.Layout, pad: int) -> np.ndarray:
+    """The kernels' roll of [rows, W] in numpy: a row as 32 threads of
+    ``per_thread`` lanes (lanes past W hold ``pad``), each thread shifts
+    its lanes by one and takes its lane 0 from the thread before, thread 0
+    from the holder's ``last`` element (a rotate across the 32 threads)."""
+    rows, W = x.shape
+    n = lay.per_thread
+    v = np.full((rows, warp_layout.WARP * n), pad, x.dtype)
+    v[:, :W] = x
+    v = v.reshape(rows, warp_layout.WARP, n)
+    out = np.empty_like(v)
+    out[:, :, 1:] = v[:, :, :-1]
+    send = v[:, :, n - 1].copy()
+    send[:, lay.holder] = v[:, lay.holder, lay.last]
+    out[:, :, 0] = send[:, [lay.holder] + list(range(warp_layout.WARP - 1))]
+    return out.reshape(rows, -1)[:, :W]
+
+
+@pytest.mark.parametrize("kernel,width", _ROLL_CASES)
+def test_warp_roll_matches_torch_roll(kernel, width):
+    """The layout's roll (and the source of each lane) equals
+    torch.roll(x, 1, 1); a lane past the width never feeds it."""
+    lay = _KERNELS[kernel].plan(width)
+    assert lay.per_thread in (ceil.R_CHOICES if kernel == "ceiling" else i16.RW_CHOICES)
+    assert warp_layout.WARP * (lay.per_thread // 2) < width <= warp_layout.WARP * lay.per_thread
+    x = np.random.default_rng(width).integers(-2**15, 2**15, (3, width)).astype(np.int16)
+    want = torch.roll(torch.from_numpy(x), 1, 1).numpy()
+    for pad in (0, 12345):
+        np.testing.assert_array_equal(_warp_roll(x, lay, pad), want)
+    src = warp_layout.roll_sources(lay)
+    assert [t * lay.per_thread + k for t, k in src] == [(i - 1) % width for i in range(width)]
+    assert all(0 <= t < warp_layout.WARP and 0 <= k < lay.per_thread for t, k in src)
+
+
+@pytest.mark.parametrize("kernel,width", [("ceiling", 0), ("ceiling", 513), ("ceiling", 1024),
+                                          ("i16", 0), ("i16", 1025)])
+def test_plan_refuses_widths_out_of_range(kernel, width):
+    with pytest.raises(ValueError, match="lanes"):
+        _KERNELS[kernel].plan(width)
+
+
+@pytest.mark.parametrize("kernel,width,per_thread", [
+    ("ceiling", 1, 1), ("ceiling", 33, 2), ("ceiling", 256, 8), ("ceiling", 300, 16),
+    ("ceiling", 512, 16), ("i16", 1, 1), ("i16", 33, 2), ("i16", 256, 8), ("i16", 544, 32),
+    ("i16", 1024, 32),
+])
+def test_plan_lanes_a_thread(kernel, width, per_thread):
+    lay = _KERNELS[kernel].plan(width)
+    assert lay.per_thread == per_thread
+    assert (lay.holder, lay.last) == divmod(width - 1, per_thread)
+
+
+def test_plan_is_fixed_for_the_probes_shapes():
+    """R = 8 at the ceiling probe's Lq = 256, the SW kernel's own rows a
+    lane at the probe's shape; RW = 8 at the int16 probes' W = 256."""
+    from breakmer_tpu_torch.ops import sw_cuda
+
+    assert ceil.plan(ceil.LQ) == (256, 8, 31, 7)
+    assert sw_cuda.launch_plan(ceil.B, ceil.LQ, ceil.LT, sms=132).rows_per_lane == 8
+    assert i16.plan(i16.SHAPE[1]) == (256, 8, 31, 7) and i16b.SHAPE == i16.SHAPE
+
+
+@pytest.mark.parametrize("source,choices", [("sw_ceiling_probe.cu", ceil.R_CHOICES),
+                                            ("probe_i16.cu", i16.RW_CHOICES)])
+def test_kernel_instantiations_are_the_plans_choices(source, choices):
+    """The extern "C" launcher instantiates exactly the template
+    constants the layout picks from, and neither kernel uses shared
+    memory or a barrier."""
+    import re
+
+    src = (REPO / "breakmer_tpu_torch/csrc" / source).read_text()
+    entry = src[src.index('extern "C"'):]
+    assert tuple(int(n) for n in re.findall(r"launch<(\d+)>", entry)) == choices
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    assert "__syncthreads" not in code and "__shared__" not in code
+
+
+@pytest.mark.parametrize("current", [0, 1])
+def test_lean_launch_makes_the_card_current_only_when_needed(current, monkeypatch):
+    """``_build.launch`` passes the raw current stream of the tensor's
+    card as the last argument, enters the device context only for a card
+    that is not current, and reports an error code only when it is not 0."""
+    entered, errors, calls = [], [], []
+
+    @contextlib.contextmanager
+    def device(index):
+        entered.append(index)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i,
+                        raising=False)
+    monkeypatch.setattr(_build, "check_launch", lambda err, what: errors.append((err, what)))
+    for rc in (0, 7):
+        _build.launch(lambda *a: calls.append(a) or rc, 1, "probe", 5, None)
+    assert calls == [(5, None, 1001)] * 2
+    assert entered == ([] if current == 1 else [1, 1])
+    assert errors == [(7, "probe")]
