@@ -114,7 +114,7 @@ def library() -> ctypes.CDLL:
         lib.probe_i16_launch.restype = i32
         lib.probe_i16_launch.argtypes = [i32, vp, vp, vp, vp, i32, i32, i32, vp]
         lib.probe_cummax_launch.restype = i32
-        lib.probe_cummax_launch.argtypes = [vp, vp, i32, i32, vp]
+        lib.probe_cummax_launch.argtypes = [vp, vp, i32, i32, i32, i32, vp]
         _lib = lib
     return _lib
 
@@ -127,20 +127,18 @@ def check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg}")
 
 
-def stream_of(x) -> int:
-    """The handle of PyTorch's current stream on tensor ``x``'s card."""
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def launch(fn, index: int, what: str, *args) -> None:
+def launch(fn, index: int, what, *args) -> None:
     """``fn(*args, stream)`` on card ``index``, with ``stream`` the raw
     handle of its current stream (no ``Stream`` object is built); the card
     is made current only when it is not already. Raises when ``fn``
-    returns a CUDA error (``what`` names the launch)."""
-    if index == torch.cuda.current_device():
+    returns a CUDA error; ``what`` names the launch: a string, or a
+    function that returns one, called only then. The current card is
+    read without ``torch.cuda.current_device``'s lazy-init check: a
+    tensor on the card means CUDA is up."""
+    if index == torch._C._cuda_getDevice():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
         with torch.cuda.device(index):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
-        check_launch(err, what)
+        check_launch(err, what() if callable(what) else what)

@@ -16,10 +16,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from breakmer_tpu_torch import _build
 from breakmer_tpu_torch.ops.sw import SWParams
 
 # kernel launches made by sw_score_cuda (one per call with B > 0)
 LAUNCHES = 0
+_LAUNCH = None  # the kernel library's sw_wavefront_launch, at the first launch
 
 ROWS_PER_LANE = (4, 8)  # the kernel's instantiations of R
 WARPS_PER_BLOCK = 4         # 128 threads, the kernel's __launch_bounds__
@@ -106,8 +108,7 @@ def sw_score_cuda(
     unpacked: keep a row's best as score and column apart, the form the
     plan takes past the packed key's range, at any shape (the card tests
     hold every instantiation against the plain version)."""
-    global LAUNCHES
-    from breakmer_tpu_torch import _build
+    global LAUNCHES, _LAUNCH
 
     if q.device.type != "cuda" or t.device != q.device:
         raise ValueError(f"sw_score_cuda: q on {q.device}, t on {t.device}; "
@@ -134,7 +135,6 @@ def sw_score_cuda(
     if B == 0:
         return score, q_end, t_end
 
-    lib = _build.library()
     plan = launch_plan(B, Lq, Lt, rows_per_lane, _sms(q.device), params.match)
     if unpacked:
         plan = plan._replace(pack=False)
@@ -143,15 +143,15 @@ def sw_score_cuda(
         scratch = torch.zeros(plan.scratch_ints, dtype=torch.int32, device=q.device)
         header = scratch.data_ptr()
         bnd = header + 4 * (plan.scratch_ints - 4 * B * (plan.strips - 1) * Lt)
-    with torch.cuda.device(q.device):
-        err = lib.sw_wavefront_launch(
-            q.data_ptr(), t.data_ptr(), B, Lq, Lt,
-            params.match, params.mismatch, params.gap_open, params.gap_extend,
-            int(no_n), int(plan.pack), plan.rows_per_lane, plan.blocks, plan.threads,
-            header, bnd, score.data_ptr(), q_end.data_ptr(), t_end.data_ptr(),
-            _build.stream_of(q),
-        )
-    _build.check_launch(err, f"sw_wavefront (B={B}, Lq={Lq}, Lt={Lt}, {plan})")
+    if _LAUNCH is None:
+        _LAUNCH = _build.library().sw_wavefront_launch
+    _build.launch(
+        _LAUNCH, q.get_device(), lambda: f"sw_wavefront (B={B}, Lq={Lq}, Lt={Lt}, {plan})",
+        q.data_ptr(), t.data_ptr(), B, Lq, Lt,
+        params.match, params.mismatch, params.gap_open, params.gap_extend,
+        int(no_n), int(plan.pack), plan.rows_per_lane, plan.blocks, plan.threads,
+        header, bnd, score.data_ptr(), q_end.data_ptr(), t_end.data_ptr(),
+    )
     LAUNCHES += 1
     return score, q_end, t_end
 

@@ -94,3 +94,23 @@ def queued_ms(fn, n: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def turns_us(a, b, reps: int = 400):
+    """A call's time of ``a`` and of ``b`` in µs (CUDA events around one
+    call, after a synchronize), taken in turns a, b, b, a, a, b, ...:
+    the medians of each one's ``reps`` readings."""
+    times = ([], [])
+    for fn in (a, b):
+        fn()
+    for r in range(reps):
+        for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (a, b)[k]()
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end) * 1e3)
+    return tuple(statistics.median(t) for t in times)

@@ -30,7 +30,10 @@ phase's wall time is printed):
      bound; the ceiling probe's rolls0 and roll_bound_fraction against the
      SW kernel; the int16 probe's launch path step by step (1,000 calls a
      step); every int16 op with a one-call torch counterpart timed against
-     it in turns (kernel, torch, torch, kernel);
+     it in turns (kernel, torch, torch, kernel); the running max against
+     torch.cummax in turns at [8, 256], its launch path step by step, and
+     at [16384, 1024] and [65536, 256] exact, with its device time against
+     torch.cummax's and the bound, at each warps a block;
   8. the batched panel path on the same 100-gene panel (batch_regions,
      32 regions a packed k-mer launch) on the card, nprocs 1 (cold, then
      warm) and 4: svs.out and the VCF byte-identical to phase 6's serial
@@ -562,7 +565,10 @@ def launch_path_steps(dev, card):
     fn = lib.probe_i16_launch
     out = torch.empty((R, W), dtype=op.out_dtype, device=dev)
     ptrs = [x.data_ptr() for x in xs] + [None]
-    stream = _build.stream_of(x0)
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+
+    def stream_of(x):  # the former path's handle: a Stream object built each call
+        return torch.cuda.current_stream(x.device).cuda_stream
 
     def former_import():
         from breakmer_tpu_torch import _build  # noqa: F401
@@ -587,7 +593,7 @@ def launch_path_steps(dev, card):
         o = torch.empty((R, W), dtype=op.out_dtype, device=x0.device)
         lib = b.library()
         with torch.cuda.device(x0.device):
-            err = lib.probe_i16_launch(op.op_id, *ps, o.data_ptr(), R, W, rw, b.stream_of(x0))
+            err = lib.probe_i16_launch(op.op_id, *ps, o.data_ptr(), R, W, rw, stream_of(x0))
         b.check_launch(err, f"probe_i16 ({op.name})")
 
     def lean_checks():
@@ -612,7 +618,7 @@ def launch_path_steps(dev, card):
          lambda: torch.empty((R, W), dtype=op.out_dtype, device=x0.device)),
         ("former: _build.library()", _build.library),
         ("former: torch.cuda.device context (enter, exit)", former_context),
-        ("former: _build.stream_of (a Stream object)", lambda: _build.stream_of(x0)),
+        ("former: the stream's handle (a Stream object)", lambda: stream_of(x0)),
         ("ctypes launch (9 arguments, launches)",
          lambda: lib.probe_i16_launch(op.op_id, *ptrs, out.data_ptr(), R, W, rw, stream)),
         ("former: check_launch(0) with its f-string",
@@ -626,13 +632,21 @@ def launch_path_steps(dev, card):
          lambda: torch.empty_like(x0, dtype=torch.int32)),
         ("ctypes call refused in C (op -1, no launch)",
          lambda: fn(-1, *ptrs, out.data_ptr(), R, W, rw, stream)),
-        ("lean: torch.cuda.current_device()", torch.cuda.current_device),
+        ("lean: torch._C._cuda_getDevice()", torch._C._cuda_getDevice),
         ("lean: raw current stream", lambda: torch._C._cuda_getCurrentRawStream(index)),
         ("lean: _build.launch (launches)",
          lambda: _build.launch(fn, index, op.name, op.op_id, *ptrs, out.data_ptr(), R, W, rw)),
         ("lean: probe_swar_i16.launch (launches)", lambda: i16.launch(op, *xs)),
         ("torch.maximum, the library call", lambda: torch.maximum(*xs)),
     ]
+    us = host_steps_us(steps, card)
+    return {"former": us["former: the whole path (launches)"],
+            "lean": us["lean: probe_swar_i16.launch (launches)"]}
+
+
+def host_steps_us(steps, card, label="launch path step") -> dict:
+    """Each (name, step) of ``steps`` run LAUNCH_STEP_CALLS times alone
+    after one warm-up call: {name: µs a call on the host clock}."""
     us = {}
     for name, step in steps:
         step()
@@ -642,30 +656,9 @@ def launch_path_steps(dev, card):
             step()
         us[name] = (time.perf_counter() - t0) / LAUNCH_STEP_CALLS * 1e6
         torch.cuda.synchronize()
-        print(f"  launch path step {name:58s} {us[name]:8.3f} us a call "
+        print(f"  {label} {name:58s} {us[name]:8.3f} us a call "
               f"({LAUNCH_STEP_CALLS} calls, host clock) [{card}]", flush=True)
-    return {"former": us["former: the whole path (launches)"],
-            "lean": us["lean: probe_swar_i16.launch (launches)"]}
-
-
-def turns_us(a, b, reps: int = 400):
-    """A call's time of ``a`` and of ``b`` in µs (CUDA events around one
-    call, after a synchronize), taken in turns a, b, b, a, a, b, ...:
-    the medians of each one's ``reps`` readings."""
-    times = ([], [])
-    for fn in (a, b):
-        fn()
-    for r in range(reps):
-        for k in ((0, 1) if r % 2 == 0 else (1, 0)):
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            (a, b)[k]()
-            end.record()
-            torch.cuda.synchronize()
-            times[k].append(start.elapsed_time(end) * 1e3)
-    return tuple(float(np.median(t)) for t in times)
+    return us
 
 
 def i16_turns(mod, dev, card):
@@ -674,7 +667,7 @@ def i16_turns(mod, dev, card):
     (``turns_us``), their ratio against I16_CALL_TARGET, and the device
     time of both (profiler and queued calls). Returns {op name: [kernel
     µs, torch µs, ratio]}."""
-    from breakmer_tpu_torch.timing import device_us, queued_ms
+    from breakmer_tpu_torch.timing import device_us, queued_ms, turns_us
 
     x = {k: torch.from_numpy(v).to(dev) for k, v in mod.inputs().items()}
     ratios = {}
@@ -704,9 +697,9 @@ def phase_probes(dev, card):
     bound and, where one torch call computes the same function, that
     call's time; the ceiling probe's rolls0 and roll_bound_fraction
     against the SW kernel at its shape; the int16 probe's launch path
-    step by step: (kernel rows for the table, keyed by kernel name)."""
-    from breakmer_tpu_torch.timing import cuda_ms, device_us, queued_ms
-    from breakmer_tpu_torch.tools import probe_mosaic_cummax as cm
+    step by step; the running max as ``cummax_row`` measures it: (kernel
+    rows for the table, keyed by kernel name)."""
+    from breakmer_tpu_torch.timing import cuda_ms
     from breakmer_tpu_torch.tools import probe_swar_i16 as i16
     from breakmer_tpu_torch.tools import probe_swar_i16b as i16b
     from breakmer_tpu_torch.tools import sw_ceiling_probe as ceil
@@ -764,29 +757,113 @@ def phase_probes(dev, card):
         print(f"  {name}: {len(ratios)} ops with a torch counterpart, a call at most "
               f"{max(v[2] for v in ratios.values()):.3f}x the torch call's; over "
               f"{I16_CALL_TARGET}: {over or 'none'}", flush=True)
-    r = cm.measure(dev)
-    check(r["exact"], "cummax kernel != plain")
-    x = torch.from_numpy(cm.inputs()).to(dev)
-    lib_us = cuda_ms(lambda: torch.cummax(x, dim=-1), reps=20) * 1e3
-    lib_dev = device_us(lambda: torch.cummax(x, dim=-1))
-    queued_us = queued_ms(lambda: cm.cummax(x)) * 1e3
-    n = cm.SHAPE[0] * cm.SHAPE[1]
-    rows["probe_cummax"] = dict(max_abs_err=r["max_abs_err"], shape=list(cm.SHAPE),
-                                ms=r["us"] / 1e3, plain_ms=r["plain_us"] / 1e3,
-                                device_ms=queued_us / 1e3,
-                                profiler_device_ms=r["device_us"] / 1e3,
-                                plain_device_ms=r["plain_device_us"] / 1e3,
-                                library_ms=lib_us / 1e3, library_device_ms=lib_dev / 1e3,
-                                bound=bound(8 * n, int32_ops=n))
-    print(f"  cummax {cm.SHAPE}: exact; kernel {r['us']:.2f} us ({r['device_us']:.2f} "
-          f"device, {queued_us:.2f} queued), plain {r['plain_us']:.2f} us "
-          f"({r['plain_device_us']:.2f} device), torch.cummax {lib_us:.2f} us "
-          f"({lib_dev:.2f} device) [{card}]", flush=True)
+    rows["probe_cummax"] = cummax_row(dev, card)
     for name, row in rows.items():
         print(f"  {name}: bound {row['bound'][0]:.3g} ms ({row['bound'][1]}); device "
               f"{row['device_ms']:.4g} ms (queued), a call {row['ms']:.4g} ms", flush=True)
     torch.cuda.synchronize()
     return rows
+
+
+CUMMAX_BANDWIDTH_SHAPES = [(16384, 1024), (65536, 256)]  # 64 MiB in, 64 MiB out each
+CUMMAX_CALL_TARGET = 1.0   # a kernel call's time over torch.cummax's, at most
+CUMMAX_SHARE_TARGET = 0.5  # the bound's share of the device time, at least
+CUMMAX_WARPS = (1, 2, 4, 8)
+
+
+def cummax_row(dev, card):
+    """The running-max kernel against its plain version: at the probe's
+    [8, 256] through ``measure`` (a call and the profiler's device time),
+    queued calls, a call in turns with torch.cummax (the ratio against
+    CUMMAX_CALL_TARGET) and the host's launch path step by step; at each
+    of CUMMAX_BANDWIDTH_SHAPES (full-range int32 from seed 8) exact, the
+    queued and profiler device times of the kernel and of torch.cummax,
+    a device copy of the input (``copy_``: the same bytes, no scan) and
+    the bound's share against CUMMAX_SHARE_TARGET; at every shape the
+    kernel at each forced warps a block beside the plan's. Returns the
+    kernel's row for the table."""
+    from breakmer_tpu_torch import _build
+    from breakmer_tpu_torch.timing import cuda_ms, device_us, queued_ms, turns_us
+    from breakmer_tpu_torch.tools import probe_mosaic_cummax as cm
+
+    def lib(x):
+        return torch.cummax(x, dim=-1)
+
+    def by_warps(x):
+        return {w: queued_ms(lambda: cm.cummax(x, warps=w)) * 1e3 for w in CUMMAX_WARPS}
+
+    r = cm.measure(dev)
+    check(r["exact"], "cummax kernel != plain")
+    x = torch.from_numpy(cm.inputs()).to(dev)
+    lib_us = cuda_ms(lambda: lib(x), reps=20) * 1e3
+    lib_dev = device_us(lambda: lib(x))
+    queued_us = queued_ms(lambda: cm.cummax(x)) * 1e3
+    lib_queued_us = queued_ms(lambda: lib(x)) * 1e3
+    k_us, t_us = turns_us(lambda: cm.cummax(x), lambda: lib(x))
+    ratio = k_us / t_us
+    warps_us = {str(cm.SHAPE): by_warps(x)}
+    n = cm.SHAPE[0] * cm.SHAPE[1]
+    print(f"  cummax {cm.SHAPE}: exact; plan {tuple(cm.plan(*cm.SHAPE))}; kernel "
+          f"{r['us']:.2f} us ({r['device_us']:.2f} device, {queued_us:.2f} queued), plain "
+          f"{r['plain_us']:.2f} us ({r['plain_device_us']:.2f} device), torch.cummax "
+          f"{lib_us:.2f} us ({lib_dev:.2f} device, {lib_queued_us:.2f} queued); a call in "
+          f"turns: kernel {k_us:.2f} us, torch.cummax {t_us:.2f} us, ratio {ratio:.3f} "
+          f"({'within' if ratio <= CUMMAX_CALL_TARGET else 'over'} {CUMMAX_CALL_TARGET}); "
+          f"queued us by warps a block {warps_us[str(cm.SHAPE)]} [{card}]", flush=True)
+    p = cm.plan(*x.shape)
+    fn = _build.library().probe_cummax_launch
+    out = torch.empty_like(x)
+    index = x.get_device()
+    launch_us = host_steps_us([
+        ("checks (is_cuda, dtype is, dim, shape, is_contiguous)",
+         lambda: (x.is_cuda, x.dtype is torch.int32, x.dim() == 2, 1 <= x.shape[1] <= 1024,
+                  x.is_contiguous())),
+        ("torch.empty_like output", lambda: torch.empty_like(x)),
+        ("x.new_empty output", lambda: x.new_empty((8, 256))),
+        ("plan(R, W) (cached)", lambda: cm.plan(8, 256)),
+        ("torch._C._cuda_getDevice()", torch._C._cuda_getDevice),
+        ("raw current stream", lambda: torch._C._cuda_getCurrentRawStream(index)),
+        ("_build.launch (launches)",
+         lambda: _build.launch(fn, index, "probe_cummax", x.data_ptr(), out.data_ptr(),
+                               8, 256, p.per_thread, p.warps)),
+        ("cummax, the whole wrapper (launches)", lambda: cm.cummax(x)),
+        ("torch.cummax, the library call", lambda: lib(x)),
+    ], card, "cummax launch path step")
+    bandwidth = []
+    for R, W in CUMMAX_BANDWIDTH_SHAPES:
+        xb = torch.from_numpy(np.random.default_rng(8).integers(
+            -2**31, 2**31, (R, W), dtype=np.int64).astype(np.int32)).to(dev)
+        err = int((cm.cummax(xb).long() - cm.cummax_plain(xb).long()).abs().max())
+        check(err == 0, f"cummax kernel != plain at {(R, W)}")
+        b_ms, b_by = bound(8 * R * W, int32_ops=R * W)
+        k_dev = queued_ms(lambda: cm.cummax(xb)) * 1e3
+        copy = torch.empty_like(xb)
+        row = dict(shape=[R, W], max_abs_err=err, plan=list(cm.plan(R, W)),
+                   device_us=k_dev, profiler_device_us=device_us(lambda: cm.cummax(xb)),
+                   library_device_us=queued_ms(lambda: lib(xb)) * 1e3,
+                   library_profiler_device_us=device_us(lambda: lib(xb)),
+                   copy_device_us=queued_ms(lambda: copy.copy_(xb)) * 1e3,
+                   bound_us=b_ms * 1e3, bound_by=b_by, bound_share=b_ms * 1e3 / k_dev)
+        warps_us[str((R, W))] = by_warps(xb)
+        bandwidth.append(row)
+        print(f"  cummax {(R, W)}: exact; plan {tuple(cm.plan(R, W))}; kernel "
+              f"{k_dev:.2f} us on the device ({row['profiler_device_us']:.2f} profiler), "
+              f"torch.cummax {row['library_device_us']:.2f} us "
+              f"({row['library_profiler_device_us']:.2f} profiler), a device copy of the "
+              f"input {row['copy_device_us']:.2f} us; bound {b_ms * 1e3:.2f} "
+              f"us ({b_by}), {row['bound_share']:.1%} of it "
+              f"({'within' if row['bound_share'] >= CUMMAX_SHARE_TARGET else 'under'} "
+              f"{CUMMAX_SHARE_TARGET:.0%}); queued us by warps a block "
+              f"{warps_us[str((R, W))]} [{card}]", flush=True)
+        del xb, copy
+    return dict(max_abs_err=r["max_abs_err"], shape=list(cm.SHAPE),
+                ms=r["us"] / 1e3, plain_ms=r["plain_us"] / 1e3,
+                device_ms=queued_us / 1e3, profiler_device_ms=r["device_us"] / 1e3,
+                plain_device_ms=r["plain_device_us"] / 1e3,
+                library_ms=lib_us / 1e3, library_device_ms=lib_dev / 1e3,
+                library_call_ratio={str(cm.SHAPE): [k_us, t_us, ratio]},
+                launch_path_us=launch_us, warps_device_us=warps_us,
+                bandwidth_shapes=bandwidth, bound=bound(8 * n, int32_ops=n))
 
 
 def tiled_region_inputs(G, R, L, LREF, GB, GLQ, GLT, RN=0, NOVEL=None, seed=3):
@@ -1371,7 +1448,8 @@ def main() -> int:
                                              "plain_device_ms", "library_device_ms",
                                              "rolls0_device_ms", "sw_full_device_ms",
                                              "roll_bound_fraction", "library_call_ratio",
-                                             "launch_path_us",
+                                             "launch_path_us", "warps_device_us",
+                                             "bandwidth_shapes",
                                              "batched_path_launches", "sharded_step_launches",
                                              "mesh_runner_launches",
                                              "sharded_index_runner_launches",

@@ -242,16 +242,76 @@ def test_redesigned_probe_wrappers_count_one_launch_a_call(card):
     assert (ceil.LAUNCHES, i16.LAUNCHES) == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 256), (5, 1000), (3, 33), (1, 1), (2, 1024)])
-def test_cummax_kernel_matches_plain(card, shape):
-    rng = np.random.default_rng(shape[1])
-    x = torch.from_numpy(rng.integers(-2**31, 2**31, shape).astype(np.int32)).to(card)
+_P_EDGES = [1, 2, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512, 513, 1000,
+            1024]
+_CUMMAX_SHAPES = [(8, 256), (5, 1000), (3, 33), (1, 1), (2, 1024),
+                  *[(R, W) for W in _P_EDGES for R in (1, 3, 8)],  # every P, a few rows
+                  (263, 257), (1029, 128), (2113, 1000),  # rows past whole blocks of 2, 4, 8
+                  (16384, 1024)]  # a bandwidth shape: 64 MiB in, 64 MiB out
+
+
+def _cummax_once(x):
+    """One call of the kernel's wrapper: one launch, equal to the plain version."""
     before = cm.LAUNCHES
     got = cm.cummax(x)
     torch.cuda.synchronize()
     assert cm.LAUNCHES == before + 1
-    assert torch.equal(got, cm.cummax_plain(x))
+    assert got.is_contiguous() and torch.equal(got, cm.cummax_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _CUMMAX_SHAPES)
+def test_cummax_kernel_matches_plain(card, shape):
+    """Full-range int32 at every P and both load forms (16-byte vectors
+    where W % 4 == 0 and P >= 4), rows that end inside a block."""
+    rng = np.random.default_rng(shape[1])
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+                         .astype(np.int32)).to(card)
+    _cummax_once(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 33, 256, 1000, 1024])
+def test_cummax_kernel_at_the_extremes(card, W):
+    """All INT_MIN (the padding's own value), all INT_MAX, a falling row
+    and a lone maximum; each warps a block forced."""
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    rows = np.stack([np.full(W, lo), np.full(W, hi), np.arange(W)[::-1] + lo,
+                     np.where(np.arange(W) == W // 2, hi, lo)]).astype(np.int32)
+    x = torch.from_numpy(np.tile(rows, (3, 1))).to(card)
+    _cummax_once(x)
+    for warps in range(1, cm.MAX_WARPS + 1):
+        assert torch.equal(cm.cummax(x, warps=warps), cm.cummax_plain(x)), warps
+
+
+@pytest.mark.cuda
+def test_cummax_kernel_on_non_contiguous_and_unaligned_inputs(card):
+    """A column slice, a transposed view and a contiguous input at an
+    address off the 16-byte vectors: each one launch, exact."""
+    rng = np.random.default_rng(5)
+    base = torch.from_numpy(rng.integers(-2**31, 2**31, (40, 520), dtype=np.int64)
+                            .astype(np.int32)).to(card)
+    flat = torch.empty(9 * 256 + 1, dtype=torch.int32, device=card)
+    unaligned = flat[1:].view(9, 256)
+    unaligned.copy_(base[:9, :256])
+    assert unaligned.data_ptr() % 16 and unaligned.is_contiguous()
+    for x in (base[:, 3:259], base[:8, :33].t(), unaligned):
+        _cummax_once(x)
+
+
+@pytest.mark.cuda
+def test_cummax_refusals_launch_nothing(card):
+    before = cm.LAUNCHES
+    for bad in (torch.zeros((2, 1025), dtype=torch.int32, device=card),
+                torch.zeros((2, 0), dtype=torch.int32, device=card),
+                torch.zeros((2, 8), dtype=torch.int64, device=card),
+                torch.zeros(8, dtype=torch.int32, device=card)):
+        with pytest.raises(ValueError):
+            cm.cummax(bad)
+    with pytest.raises(ValueError, match="warps"):
+        cm.cummax(torch.zeros((2, 8), dtype=torch.int32, device=card), warps=9)
+    assert cm.cummax(torch.zeros((0, 8), dtype=torch.int32, device=card)).shape == (0, 8)
+    assert cm.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -348,7 +348,8 @@ def test_plan_is_fixed_for_the_probes_shapes():
 
 
 @pytest.mark.parametrize("source,choices", [("sw_ceiling_probe.cu", ceil.R_CHOICES),
-                                            ("probe_i16.cu", i16.RW_CHOICES)])
+                                            ("probe_i16.cu", i16.RW_CHOICES),
+                                            ("probe_cummax.cu", cm.P_CHOICES)])
 def test_kernel_instantiations_are_the_plans_choices(source, choices):
     """The extern "C" launcher instantiates exactly the template
     constants the layout picks from, and neither kernel uses shared
@@ -374,7 +375,7 @@ def test_lean_launch_makes_the_card_current_only_when_needed(current, monkeypatc
         entered.append(index)
         yield
 
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: current, raising=False)
     monkeypatch.setattr(torch.cuda, "device", device)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i,
                         raising=False)
@@ -384,3 +385,170 @@ def test_lean_launch_makes_the_card_current_only_when_needed(current, monkeypatc
     assert calls == [(5, None, 1001)] * 2
     assert entered == ([] if current == 1 else [1, 1])
     assert errors == [(7, "probe")]
+
+
+def test_lean_launch_names_a_failed_launch_only_when_it_fails(monkeypatch):
+    """A ``what`` given as a function is called only for a launch that
+    returned an error, and its string is the one the error carries."""
+    named, errors = [], []
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i,
+                        raising=False)
+    monkeypatch.setattr(_build, "check_launch", lambda err, what: errors.append((err, what)))
+    for rc in (0, 0, 9):
+        _build.launch(lambda *a: rc, 0, lambda: named.append(rc) or "sw_wavefront (B=2)")
+    assert named == [9] and errors == [(9, "sw_wavefront (B=2)")]
+
+
+@pytest.mark.parametrize("module", ["breakmer_tpu_torch/ops/sw_cuda.py",
+                                    "breakmer_tpu_torch/tools/probe_mosaic_cummax.py",
+                                    "breakmer_tpu_torch/tools/probe_swar_i16.py",
+                                    "breakmer_tpu_torch/tools/sw_ceiling_probe.py"])
+def test_kernel_wrappers_take_the_lean_launch_path(module):
+    """Every kernel wrapper launches through ``_build.launch`` with the
+    library's function kept in a module global: no ``torch.cuda.device``
+    context, no ``Stream`` object, no ``check_launch`` of its own."""
+    tree = ast.parse((REPO / module).read_text())
+    names = {ast.unparse(n) for n in ast.walk(tree) if isinstance(n, ast.Attribute)}
+    assert "_build.launch" in names
+    assert not names & {"torch.cuda.device", "torch.cuda.current_stream", "_build.stream_of",
+                        "_build.check_launch"}
+    assert any(isinstance(n, ast.Assign) and [ast.unparse(t) for t in n.targets] == ["_LAUNCH"]
+               for n in tree.body)
+
+
+# -- the running-max kernel's scan in its layout (one warp a row, P lanes
+# -- a thread in registers, a warp scan of the thread totals) --------------
+
+_INT_MIN = np.iinfo(np.int32).min
+_CUMMAX_WIDTHS = [1, 2, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256, 257, 511, 512, 513,
+                  1000, 1024]
+
+
+def _warp_cummax(x: np.ndarray, per_thread: int, pad: np.ndarray) -> np.ndarray:
+    """``csrc/probe_cummax.cu``'s scan of [rows, W] int32 in numpy: each
+    of 32 threads holds ``per_thread`` lanes (lanes past W hold ``pad``,
+    [rows, 32 * per_thread]), runs a running max over them; a
+    Hillis-Steele scan of the 32 thread totals (``__shfl_up_sync`` by 1,
+    2, 4, 8, 16: a thread below the offset keeps its own value); the
+    exclusive carry is the scanned total of the thread before (thread 0:
+    INT_MIN), and each lane takes the max of it and its own value."""
+    rows, W = x.shape
+    n, warp = per_thread, warp_layout.WARP
+    v = pad.astype(np.int32).copy()
+    v[:, :W] = x
+    v = v.reshape(rows, warp, n)
+    for k in range(1, n):
+        v[:, :, k] = np.maximum(v[:, :, k], v[:, :, k - 1])
+    lane = np.arange(warp)
+    t = v[:, :, n - 1].copy()
+    for off in (1, 2, 4, 8, 16):
+        y = t[:, np.where(lane >= off, lane - off, lane)]
+        t = np.where(lane >= off, np.maximum(t, y), t)
+    carry = np.where(lane == 0, _INT_MIN, t[:, np.maximum(lane - 1, 0)])
+    v = np.maximum(v, carry[:, :, None])
+    return v.reshape(rows, -1)[:, :W]
+
+
+def _rot(per_thread: int) -> np.ndarray:
+    """The 16-byte chunk of the row that each thread takes at access 0 of
+    the kernel's 16-byte path: the lane rotated left by log2(P) - 2 bits
+    within 5 (access j adds 32 j)."""
+    S, lane = per_thread.bit_length() - 3, np.arange(warp_layout.WARP)
+    return ((lane << S) | (lane >> (5 - S))) & 31
+
+
+def _load_coalesced(row: np.ndarray, per_thread: int) -> np.ndarray:
+    """[32, P] registers of a warp after its 16-byte loads: access j of
+    thread l fills registers 4 j .. 4 j + 3 with chunk 32 j + rot(l)."""
+    chunks = row.reshape(-1, 4)
+    return np.stack([chunks[32 * np.arange(per_thread // 4) + r].reshape(-1)
+                     for r in _rot(per_thread)])
+
+
+def _stages(v: np.ndarray, per_thread: int) -> np.ndarray:
+    """The kernel's exchange in numpy: stage b swaps bit b of the chunk
+    index with lane bit 5 - S + b (``__shfl_xor_sync`` on that mask; a
+    thread whose lane bit is set keeps the chunks whose bit b is set and
+    sends the others)."""
+    S, lane = per_thread.bit_length() - 3, np.arange(warp_layout.WARP)
+    for b in range(S):
+        mask = 1 << (5 - S + b)
+        hi = ((lane & mask) > 0)[:, None]
+        new = v.copy()
+        for i in range(per_thread // 4):
+            if i & (1 << b):
+                continue
+            r0 = slice(4 * i, 4 * i + 4)
+            r1 = slice(4 * (i | 1 << b), 4 * (i | 1 << b) + 4)
+            got = np.where(hi, v[:, r0], v[:, r1])[lane ^ mask]
+            new[:, r0] = np.where(hi, got, v[:, r0])
+            new[:, r1] = np.where(hi, v[:, r1], got)
+        v = new
+    return v
+
+
+@pytest.mark.parametrize("per_thread", [p for p in cm.P_CHOICES if p >= 4])
+def test_coalesced_loads_and_exchange_give_the_layout(per_thread):
+    """Each warp access of the 16-byte path covers 512 contiguous bytes;
+    the exchange brings the loaded row into the layout (thread l holds
+    lanes l*P .. l*P+P-1), and run on the layout it gives back the order
+    the stores write, so each chunk goes back where it was read."""
+    assert sorted(_rot(per_thread)) == list(range(warp_layout.WARP))
+    row = np.arange(warp_layout.WARP * per_thread)
+    layout = row.reshape(warp_layout.WARP, per_thread)
+    np.testing.assert_array_equal(_stages(_load_coalesced(row, per_thread), per_thread),
+                                  layout)
+    np.testing.assert_array_equal(_stages(layout, per_thread),
+                                  _load_coalesced(row, per_thread))
+
+
+@pytest.mark.parametrize("width", _CUMMAX_WIDTHS)
+def test_warp_cummax_matches_numpy(width):
+    """The kernel's scan in its layout equals np.maximum.accumulate on
+    full-range int32 (extremes included), with lanes past W at INT_MIN,
+    as the kernel pads them, and at garbage: a lane past W never feeds a
+    lane below it."""
+    P = cm.plan(1, width).per_thread
+    rng = np.random.default_rng(width)
+    x = rng.integers(-2**31, 2**31, (5, width), dtype=np.int64).astype(np.int32)
+    x[1] = _INT_MIN
+    x[2] = np.iinfo(np.int32).max
+    x[3, ::7] = _INT_MIN
+    x[4] = np.arange(width)[::-1]  # falling: every lane keeps lane 0
+    want = np.maximum.accumulate(x, axis=1)
+    full = (5, warp_layout.WARP * P)
+    for pad in (np.full(full, _INT_MIN),
+                rng.integers(-2**31, 2**31, full, dtype=np.int64),
+                np.full(full, np.iinfo(np.int32).max)):
+        np.testing.assert_array_equal(_warp_cummax(x, P, pad), want)
+    np.testing.assert_array_equal(cm.cummax(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("width", _CUMMAX_WIDTHS)
+def test_cummax_plan_at_the_layouts_widths(width):
+    """P is the warp layout's (the smallest power of two with 32 P >= W);
+    a few rows take one warp a block."""
+    for R in (1, 3, 8):
+        p = cm.plan(R, width)
+        assert p.per_thread in cm.P_CHOICES
+        assert warp_layout.WARP * (p.per_thread // 2) < width <= warp_layout.WARP * p.per_thread
+        assert p.per_thread == warp_layout.layout(width, cm.P_CHOICES).per_thread
+        assert p.warps == 1
+
+
+@pytest.mark.parametrize("R,warps", [(1, 1), (132, 1), (262, 1), (263, 2), (527, 4),
+                                     (1056, 8), (16384, 8), (65536, 8)])
+def test_cummax_plan_warps_a_block(R, warps):
+    """The most warps a block (up to 8) that leave a block for each of the
+    132 SMs."""
+    p = cm.plan(R, 256)
+    assert p.warps == warps <= cm.MAX_WARPS
+    assert -(-R // warps) >= min(R, cm.SMS)
+    assert warps == cm.MAX_WARPS or -(-R // (2 * warps)) < cm.SMS
+
+
+@pytest.mark.parametrize("R,width", [(1, 0), (8, 1025), (0, 256)])
+def test_cummax_plan_refuses(R, width):
+    with pytest.raises(ValueError, match="lanes|rows"):
+        cm.plan(R, width)
