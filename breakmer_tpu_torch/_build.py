@@ -115,6 +115,15 @@ def library() -> ctypes.CDLL:
         lib.probe_i16_launch.argtypes = [i32, vp, vp, vp, vp, i32, i32, i32, vp]
         lib.probe_cummax_launch.restype = i32
         lib.probe_cummax_launch.argtypes = [vp, vp, i32, i32, i32, i32, vp]
+        i64 = ctypes.c_int64
+        for name, args in (
+                ("kmer_codes", [vp, vp, i64, i32, i32, vp, vp]),
+                ("revcomp_kmers", [vp, i64, i32, vp]),
+                ("unique_counts_sorted", [vp, i64, i64, vp, vp, vp]),
+                ("subtract_sorted", [vp, vp, vp, i64, vp, i64, i64, i64, vp, vp])):
+            fn = getattr(lib, f"{name}_launch")
+            fn.restype = i32
+            fn.argtypes = args + [vp]  # the stream last
         _lib = lib
     return _lib
 

@@ -3,7 +3,7 @@
 Port of ``breakmer_tpu/parallel/kmer_batch.py``. The serial runner
 pays one device round trip per region; this step packs G regions into
 one fixed-shape batch (``parallel/regions.py``) and runs the k-mer
-extract/count/subtract of all G in one set of torch ops
+extract/count/subtract of all G in one call of each k-mer function
 (``parallel/step._per_region_kmers``, shared with the region step),
 optionally sharded over the regions axis of a mesh
 (``parallel/mesh.py``): each regions block goes to its own device,

@@ -9,8 +9,9 @@ step ``__graft_entry__.entry`` returns and ``bench.py`` times:
   out: per-region sample-only k-mer values / counts, SW scores and ends
 
 The JAX step ``vmap``s ``_per_region_kmers`` over regions; here the
-region dim is written out: one set of torch ops over all G regions
-(row-wise sorts, ``cummin`` and ``searchsorted``; ``ops/kmer.py``). The
+region dim is written out: one call of each k-mer function over all G
+regions (row-wise sorts, and on a card one launch of each k-mer kernel,
+three of ``kmer_codes``; ``ops/kmer.py``). The
 SW half is one ``sw_score_auto`` call over all G·B pairs, reshaped back
 to [G, B]: one kernel launch a step on the card. SW tie-breaks are per
 pair, so flattening changes no result. The k-mer values are int64 on the

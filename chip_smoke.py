@@ -13,14 +13,21 @@ phase's wall time is printed):
      unpacked; median of 5 CUDA-event timings of each, with GCUPS, the
      bound and the share of it the kernel reaches;
   4. the k-mer engine on the card against the CPU (2,000 x 150 bp reads,
-     3 kb region, matched normal);
+     3 kb region, matched normal); then each of the four k-mer kernels
+     (csrc/kmer.cu) against its plain version, exact, at a serial
+     region's shapes and the batch step's, with its device time (queued
+     calls), a call's time, the plain version's, the bound and one torch
+     call's where one computes the same function; and the CUDA kernels
+     one sample_only_kmers call runs (profiler);
   5. the serial slice on the card (python -m breakmer_tpu_torch.cli run,
      driven as the CLI drives it) on scenario seeds 1 and 7: every
      planted-SV checker must pass;
   6. the slice at panel scale: a 100-gene errored panel with a matched
      normal, on the card and then on the CPU; svs.out and the VCF must be
-     byte-identical, no region may fail, and every SW batch of the card
-     run must have launched the kernel; a second card run records the SW
+     byte-identical, no region may fail, every SW batch of the card run
+     must have launched the kernel, every k-mer kernel must have
+     launched, kmer_codes at least twice a region that reached the k-mer
+     stage (three times with a normal); a second card run records the SW
      launches by shape, each replayed for its kernel time beside its
      bound (the timed run records nothing);
   7. the probe kernels against their plain versions on the card, exact:
@@ -37,7 +44,8 @@ phase's wall time is printed):
   8. the batched panel path on the same 100-gene panel (batch_regions,
      32 regions a packed k-mer launch) on the card, nprocs 1 (cold, then
      warm) and 4: svs.out and the VCF byte-identical to phase 6's serial
-     output, no region error, every SW batch launched the kernel; then a
+     output, no region error, every SW batch launched the kernel, every
+     k-mer kernel launched; then a
      recorded warm run gives the SW launches by shape as in phase 6;
   9. the k-mer batch step on the card against the CPU, exact, full and
      packed, at 32 regions of 512 reads with a matched normal; both
@@ -309,7 +317,142 @@ class SWRecorder:
         return [dict(shape=list(k), **v) for k, v in sorted(out.items())]
 
 
+# A contig window of the germline recheck; the k-mer kernels' other shapes
+# are tools/kmer_time.py's SERIAL (a region of the serial path) and BATCH
+# (phase 9's batch step)
+KMER_CONTIG = 60
+KMER_KERNELS = {  # name: the jitted JAX function (an XLA program, no Pallas kernel)
+    "kmer_codes": "breakmer_tpu/ops/kmer.py:43-44",
+    "revcomp_kmers": "breakmer_tpu/ops/kmer.py:102-103",
+    "unique_counts_sorted": "breakmer_tpu/ops/kmer.py:121-122",
+    "subtract_sorted": "breakmer_tpu/ops/kmer.py:162-163",
+}
+
+
+def kmer_kernel_inputs(rng, dev, G, sample, ref, normal):
+    """The four kernels' inputs on the card for G regions (G = 0: one
+    region, unbatched rows): errored reads tiled over a haplotype that
+    carries 300 novel bases against the reference, a matched normal of
+    its first half; each kernel's arguments as the engine passes them."""
+    from breakmer_tpu_torch.ops import kmer
+
+    g = max(G, 1)
+    (R, L), (Rn, Ln) = sample, normal
+    hap = rng.integers(0, 4, (g, ref + 300)).astype(np.int8)
+    refs = np.concatenate([hap[:, :ref // 2], hap[:, ref // 2 + 300:]], axis=1)
+
+    def tile(n, width, hi):
+        starts = rng.integers(0, hi - width + 1, (g, n))
+        codes = hap[np.arange(g)[:, None, None], starts[:, :, None] + np.arange(width)]
+        err = rng.random(codes.shape) < 0.01
+        codes[err] = rng.integers(0, 4, int(err.sum()))
+        codes[rng.random(codes.shape) < 0.001] = 4
+        return codes.reshape(g * n, width)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    reads, nreads = on(tile(R, L, ref + 300)), on(tile(Rn, Ln, ref // 2 + 150))
+    lengths = on(np.full(g * R, L, np.int32))
+    nlengths = on(np.full(g * Rn, Ln, np.int32))
+    refs, ref_len = on(refs), on(np.full(g, ref, np.int32))
+    rkm = kmer.kmer_codes_plain(refs, ref_len, 15)[0]
+    table = torch.sort(torch.cat([rkm, kmer.revcomp_kmers_plain(rkm, 15)], -1), -1).values
+    lead = (G,) if G else ()
+    srt = torch.sort(kmer.kmer_codes_plain(reads, lengths, 15)[0].reshape(*lead, -1), -1).values
+    values, counts, _ = kmer.unique_counts_sorted_plain(srt)
+    ntable = torch.sort(kmer.kmer_codes_plain(nreads, nlengths, 15)[0].reshape(*lead, -1),
+                        -1).values
+    if not G:
+        table = table[0]
+    return {"kmer_codes": (reads, lengths, 15), "revcomp_kmers": (rkm, 15),
+            "unique_counts_sorted": (srt,), "subtract_sorted": (values, counts, table, ntable)}
+
+
+def kmer_bound(args, out):
+    """(bound_ms, "bytes"): each input read once, each output written once."""
+    nbytes = sum(x.numel() * x.element_size() for x in (*args, *out)
+                 if isinstance(x, torch.Tensor))
+    return bound(nbytes)
+
+
+def kmer_library(name, args):
+    """The one PyTorch call computing the same function (the port never
+    calls it), or None: ``unique_consecutive`` with counts for the run
+    lengths (compact layout, over the flattened rows), ``isin`` against
+    the reference table for the membership half of the subtraction."""
+    if name == "unique_counts_sorted":
+        return lambda: torch.unique_consecutive(args[0].reshape(-1), return_counts=True)
+    if name == "subtract_sorted":
+        return lambda: torch.isin(args[0], args[2])
+    return None
+
+
+def kmer_kernel_rows(dev, card):
+    """Each k-mer kernel against its plain version on the card, exact, at
+    the serial path's and the batch step's shapes, with its device time
+    (queued calls), a call's time (events), the plain version's, the
+    bound and the library call's; then the CUDA kernels one
+    sample_only_kmers call runs (profiler). Returns (kernel rows for
+    the table, keyed by name; the kernels a call)."""
+    from breakmer_tpu_torch.ops import kmer, kmer_cuda
+    from breakmer_tpu_torch.timing import cuda_ms, queued_ms
+    from breakmer_tpu_torch.tools import kmer_time
+
+    rng = np.random.default_rng(9)
+    forms = {"serial": kmer_kernel_inputs(rng, dev, **kmer_time.SERIAL),
+             "batch": kmer_kernel_inputs(rng, dev, **kmer_time.BATCH)}
+    rows = {}
+    for form, inputs in forms.items():
+        for name, args in inputs.items():
+            kernel, plain = getattr(kmer, name), getattr(kmer, f"{name}_plain")
+            before = kmer_cuda.LAUNCHES[name]
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            check(kmer_cuda.LAUNCHES[name] == before + 1, f"{name}: no launch of its kernel")
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain(*args)
+            want = want if isinstance(want, tuple) else (want,)
+            check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(want, got)),
+                  f"{name} ({form}): kernel != plain")
+            lib = kmer_library(name, args)
+            r = dict(shape=[list(a.shape) for a in args if isinstance(a, torch.Tensor)],
+                     max_abs_err=0, ms=cuda_ms(lambda: kernel(*args)),
+                     device_ms=queued_ms(lambda: kernel(*args)),
+                     plain_ms=cuda_ms(lambda: plain(*args)),
+                     plain_device_ms=queued_ms(lambda: plain(*args)),
+                     library_ms=None if lib is None else cuda_ms(lib),
+                     library_device_ms=None if lib is None else queued_ms(lib),
+                     bound=kmer_bound(args, got))
+            if name == "kmer_codes" and form == "serial":  # a contig window too
+                row = args[0][:1, :KMER_CONTIG].contiguous()
+                one = torch.tensor([KMER_CONTIG], dtype=torch.int32, device=dev)
+                check(all(torch.equal(a, b) for a, b in zip(
+                    kmer.kmer_codes_plain(row, one, 15), kmer.kmer_codes(row, one, 15))),
+                    "kmer_codes (contig window): kernel != plain")
+                r["contig_device_ms"] = queued_ms(lambda: kmer.kmer_codes(row, one, 15))
+            lib_txt = "none" if lib is None else (
+                f"{r['library_ms']:.4f} ({r['library_device_ms']:.4f} device)")
+            print(f"  {name} {form} {r['shape']}: kernel == plain; device "
+                  f"{r['device_ms']:.4f} ms (queued), a call {r['ms']:.4f} ms; plain "
+                  f"{r['plain_ms']:.4f} ({r['plain_device_ms']:.4f} device); bound "
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); library {lib_txt} ms [{card}]",
+                  flush=True)
+            if form == "serial":
+                rows[name] = r
+            else:
+                rows[name]["batch_step"] = {k: v for k, v in r.items() if k != "max_abs_err"}
+    call = kmer_time.call_profile(rng, reps=5)
+    print(f"  sample_only_kmers {kmer_time.SERIAL}: {call['kernels']} CUDA kernels and "
+          f"{call['copies']} copies a call (profiler), {call['device_ms']:.4f} ms of device "
+          f"time, {call['wall_ms']:.4f} ms a call [{card}]", flush=True)
+    return rows, {k: call[k] for k in ("kernels", "copies", "device_ms", "wall_ms")}
+
+
 def phase_kmer(dev, card):
+    """The k-mer engine on the card against the CPU (2,000 x 150 bp reads,
+    a 3 kb region, a matched normal), then each k-mer kernel as
+    ``kmer_kernel_rows`` holds and times it."""
     from breakmer_tpu_torch.ops.kmer import sample_only_kmers
 
     rng = np.random.default_rng(7)
@@ -341,6 +484,55 @@ def phase_kmer(dev, card):
     ms = (time.perf_counter() - t0) * 1e3
     print(f"  kmer: CUDA == CPU, {len(got[0])} sample-only k-mers; "
           f"{ms:.2f} ms a call on the card (host clock) [{card}]", flush=True)
+    return kmer_kernel_rows(dev, card)
+
+
+class KmerCalls:
+    """Counts the serial path's sample_only_kmers calls (those with a
+    matched normal apart) while it is entered, and sets every k-mer
+    kernel's launch count to 0 on entry; ``launches`` holds the counts
+    on exit."""
+
+    def __enter__(self):
+        from breakmer_tpu_torch import pipeline
+        from breakmer_tpu_torch.ops import kmer_cuda
+
+        self.pipeline, self.kmer_cuda = pipeline, kmer_cuda
+        self.orig = pipeline.sample_only_kmers
+        self.calls = self.with_normal = 0
+        self.shapes = []  # (sample reads, read length, reference length) a call
+
+        def counted(*args, normal_codes=None, **kw):
+            self.calls += 1
+            self.with_normal += normal_codes is not None
+            self.shapes.append((*args[0].shape, len(args[2])))
+            return self.orig(*args, normal_codes=normal_codes, **kw)
+
+        pipeline.sample_only_kmers = counted
+        for name in kmer_cuda.KERNELS:
+            kmer_cuda.LAUNCHES[name] = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = dict(self.kmer_cuda.LAUNCHES)
+        self.pipeline.sample_only_kmers = self.orig
+
+    def check(self, label: str, serial: bool) -> dict:
+        """Every k-mer kernel launched; on the serial path, kmer_codes at
+        least twice a region that reached the k-mer stage (three times
+        with a normal)."""
+        for name, n in self.launches.items():
+            check(n > 0, f"{label}: the {name} kernel launched no time")
+        if serial:
+            need = 2 * self.calls + self.with_normal
+            check(self.launches["kmer_codes"] >= need,
+                  f"{label}: {self.launches['kmer_codes']} kmer_codes launches for "
+                  f"{self.calls} regions ({self.with_normal} with a normal): want >= {need}")
+        med = np.median(np.array(self.shapes), axis=0).tolist() if self.shapes else None
+        print(f"  {label} k-mer kernel launches {self.launches} ({self.calls} regions "
+              f"reached the k-mer stage, {self.with_normal} with a normal; median sample "
+              f"reads, read length, reference length {med})", flush=True)
+        return self.launches
 
 
 def run_panel(cfg_kwargs, out: Path, device: str):
@@ -409,9 +601,11 @@ def phase_slice_scale(card, panel):
 
     cfg_kwargs, checks, work = panel
     cfg_kwargs = {**cfg_kwargs, "batch_regions": False}
-    sw_cuda.LAUNCHES = 0  # main path starts here
-    events, metrics, setup_s, run_s, _ = run_panel(cfg_kwargs, work / "cuda", "cuda")
-    launches = sw_cuda.LAUNCHES
+    with KmerCalls() as kmer_calls:  # every k-mer kernel's count is 0 here
+        sw_cuda.LAUNCHES = 0  # main path starts here
+        events, metrics, setup_s, run_s, _ = run_panel(cfg_kwargs, work / "cuda", "cuda")
+        launches = sw_cuda.LAUNCHES
+    kmer_launches = kmer_calls.check("panel100 serial", serial=True)
     sw_batches = METER.sw_launches
     check(launches > 0, "main path launched the SW kernel no time")
     check(launches == sw_batches,
@@ -443,26 +637,29 @@ def phase_slice_scale(card, panel):
     check(len(rec.calls) == launches, "the recorded serial run launched SW differently")
     by_shape = rec.by_shape("panel100 serial", card)
     torch.cuda.synchronize()
-    return launches, by_shape
+    return launches, by_shape, kmer_launches
 
 
 def phase_batched_panel(card, panel, serial_sw_batches):
     """The batched path on the 100-gene panel: nprocs 1 cold, nprocs 1
     warm (timed), nprocs 4; each byte-identical to phase 6's serial CUDA
-    output. Returns the warm run's SW kernel launches, its SW launches by
-    shape and its regions/s."""
+    output, every k-mer kernel launched. Returns the warm run's SW kernel
+    launches, its SW launches by shape, its regions/s and its k-mer kernel
+    launches."""
     from breakmer_tpu_torch.utils.meter import METER
     from breakmer_tpu_torch.ops import sw_cuda
 
     cfg_kwargs, _, work = panel
     serial = {name: (work / "cuda" / "output" / name).read_bytes() for name in OUTPUTS}
-    warm_launches, warm_rate = 0, 0.0
+    warm_launches, warm_rate, kmer_launches = 0, 0.0, {}
     for label, nprocs in (("cold", 1), ("warm", 1), ("nprocs4", 4)):
         kw = {**cfg_kwargs, "batch_regions": True, "nprocs": nprocs}
         out = work / f"batched_{label}"
-        sw_cuda.LAUNCHES = 0  # this run of the batched path starts here
-        events, metrics, setup_s, run_s, runner = run_panel(kw, out, "cuda")
-        launches = sw_cuda.LAUNCHES
+        with KmerCalls() as kmer_calls:
+            sw_cuda.LAUNCHES = 0  # this run of the batched path starts here
+            events, metrics, setup_s, run_s, runner = run_panel(kw, out, "cuda")
+            launches = sw_cuda.LAUNCHES
+        kmer_calls.check(f"batched {label}", serial=False)
         sw_batches = METER.sw_launches
         check(launches > 0, f"batched {label}: the SW kernel launched no time")
         check(launches == sw_batches,
@@ -483,13 +680,14 @@ def phase_batched_panel(card, panel, serial_sw_batches):
               f"svs.out and VCF == serial [{card}]", flush=True)
         if label == "warm":
             warm_launches, warm_rate = launches, n_regions / run_s
+            kmer_launches = kmer_calls.launches
     kw = {**cfg_kwargs, "batch_regions": True, "nprocs": 1}
     with SWRecorder() as rec:  # an untimed warm run for the launches by shape
         run_panel(kw, work / "batched_recorded", "cuda")
     check(len(rec.calls) == warm_launches, "the recorded batched run launched SW differently")
     by_shape = rec.by_shape("batched panel100 warm", card)
     torch.cuda.synchronize()
-    return warm_launches, by_shape, warm_rate
+    return warm_launches, by_shape, warm_rate, kmer_launches
 
 
 def phase_kmer_batch_step(dev, card):
@@ -1370,6 +1568,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "probe_i16b": ("breakmer_tpu_torch/csrc/probe_i16.cu", "tools/probe_swar_i16b.py:28"),
     "probe_cummax": ("breakmer_tpu_torch/csrc/probe_cummax.cu",
                      "tools/probe_mosaic_cummax.py:19"),
+    **{name: ("breakmer_tpu_torch/csrc/kmer.cu",
+              f"{where} (jitted {name}: an XLA program, not a Pallas kernel)")
+       for name, where in KMER_KERNELS.items()},
 }
 
 
@@ -1400,11 +1601,12 @@ def main() -> int:
     _build.library()
 
     sw_rows, sw_err = timed("sw", phase_sw, dev, card)
-    timed("kmer", phase_kmer, dev, card)
+    kmer_rows, kmer_call = timed("kmer", phase_kmer, dev, card)
     timed("slice seeds 1, 7", phase_slice_exact, card)
     panel = build_panel100()
-    sw_launches, serial_by_shape = timed("panel100", phase_slice_scale, card, panel)
-    batched_launches, batched_by_shape, batched_rate = timed(
+    sw_launches, serial_by_shape, kmer_launches = timed(
+        "panel100", phase_slice_scale, card, panel)
+    batched_launches, batched_by_shape, batched_rate, kmer_batched = timed(
         "batched panel100", phase_batched_panel, card, panel, sw_launches)
     timed("kmer batch step", phase_kmer_batch_step, dev, card)
     rows = timed("probe kernels", phase_probes, dev, card)
@@ -1435,6 +1637,10 @@ def main() -> int:
                                 main_path_by_shape=serial_by_shape,
                                 batched_path_by_shape=batched_by_shape)
     launches["sw_wavefront"] = sw_launches
+    for name, row in kmer_rows.items():
+        rows[name] = dict(row, batched_path_launches=kmer_batched[name])
+        launches[name] = kmer_launches[name]
+    rows["kmer_codes"]["sample_only_kmers_call"] = kmer_call
     table = []
     for name, (source, replaces) in KERNELS.items():
         row = rows[name]
@@ -1454,7 +1660,9 @@ def main() -> int:
                                              "mesh_runner_launches",
                                              "sharded_index_runner_launches",
                                              "multihost_launches", "agreement_launches",
-                                             "main_path_by_shape", "batched_path_by_shape")
+                                             "main_path_by_shape", "batched_path_by_shape",
+                                             "contig_device_ms", "batch_step",
+                                             "sample_only_kmers_call")
                          if k in row}})
     print(card_line())
     print(json.dumps({"kernels": table}))

@@ -551,3 +551,260 @@ def test_agreement_pad_rows_match_plain(card, R, unpacked):
     for a, b in zip(want, got):
         assert torch.equal(a, b)
     assert int(want[0][5]) == 0
+
+
+# -- the k-mer engine's kernels (csrc/kmer.cu) against their plain versions --
+
+from breakmer_tpu_torch.ops import kmer_cuda  # noqa: E402
+from breakmer_tpu_torch.parallel.step import _per_region_kmers  # noqa: E402
+
+_SENT = kmer_cuda.SENTINEL
+
+
+def _launched(name, fn):
+    """fn() and that it launched ``name`` once (and no other k-mer kernel)."""
+    before = dict(kmer_cuda.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    after = dict(before, **{name: before[name] + 1})
+    assert kmer_cuda.LAUNCHES == after, (name, before, kmer_cuda.LAUNCHES)
+    return out
+
+
+def _equal(want, got):
+    want, got = ((x if isinstance(x, tuple) else (x,)) for x in (want, got))
+    for a, b in zip(want, got, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def _read_codes(rng, R, L, k, n_rate=0.02):
+    """Codes with N as any byte 4..127, an all-N row, and lengths below k,
+    inside the row and past L."""
+    codes = rng.integers(0, 4, (R, L)).astype(np.int8)
+    mask = rng.random((R, L)) < n_rate
+    codes[mask] = rng.integers(4, 128, int(mask.sum()))
+    lengths = rng.integers(L // 2, L + 1, R).astype(np.int32)
+    if R >= 4:
+        codes[1] = 4
+        lengths[2], lengths[3] = k - 1, L + 9
+    return codes, lengths
+
+
+# the main path's shapes (a region's sample batch, its reference row, a
+# contig window) and the batch step's (G = 32 x R = 512 reads of 128)
+_KMER_SHAPES = [(200, 100), (1, 3000), (1, 60), (32 * 512, 128), (5, 15), (3, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 11, 15])
+@pytest.mark.parametrize("R,L", _KMER_SHAPES)
+def test_kmer_codes_kernel_matches_plain(card, k, R, L):
+    rng = np.random.default_rng(R + L + k)
+    codes, lengths = (torch.from_numpy(a).to(card) for a in _read_codes(rng, R, L, k))
+    want = kmer.kmer_codes_plain(codes, lengths, k)
+    got = _launched("kmer_codes", lambda: kmer.kmer_codes(codes, lengths, k))
+    _equal(want, got)
+    # strided inputs (every other column and read), made contiguous by the wrapper
+    wide = torch.from_numpy(np.repeat(_read_codes(rng, 2 * R, L, k)[0], 2, axis=1)).to(card)
+    lens = torch.from_numpy(rng.integers(0, L + 3, 2 * R).astype(np.int32)).to(card)
+    strided, lens = wide[::2, ::2], lens[::2]
+    assert not strided.is_contiguous()
+    _equal(kmer.kmer_codes_plain(strided, lens, k),
+           _launched("kmer_codes", lambda: kmer.kmer_codes(strided, lens, k)))
+
+
+@pytest.mark.cuda
+def test_kmer_codes_kernel_on_all_n_and_every_byte(card):
+    codes = torch.from_numpy(np.arange(-128, 128, dtype=np.int16).astype(np.int8)
+                             .reshape(8, 32)).to(card)
+    for rows, lengths in ((codes, [32] * 8), (torch.full_like(codes, 4), [32] * 8),
+                          (codes.remainder(4).to(torch.int8), [0, 1, 14, 15, 16, 31, 32, 99])):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+        for k in (1, 15):
+            _equal(kmer.kmer_codes_plain(rows, lens, k),
+                   _launched("kmer_codes", lambda: kmer.kmer_codes(rows, lens, k)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 11, 15])
+def test_revcomp_kernel_matches_plain(card, k):
+    rng = np.random.default_rng(k)
+    codes, lengths = (torch.from_numpy(a).to(card) for a in _read_codes(rng, 64, 200, k))
+    km = kmer.kmer_codes_plain(codes, lengths, k)[0]
+    for x in (km, km.reshape(-1), km[:, ::3], km.t(),
+              torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, 999)).to(card)):
+        _equal(kmer.revcomp_kmers_plain(x, k),
+               _launched("revcomp_kmers", lambda: kmer.revcomp_kmers(x, k)))
+
+
+def _sorted_rows(rng, G, N, hi, sent_from=None):
+    x = np.sort(rng.integers(0, hi, (G, N)), axis=1)
+    if sent_from is not None:
+        x[:, sent_from:] = _SENT
+    return x
+
+
+@pytest.mark.cuda
+def test_unique_counts_kernel_matches_plain(card):
+    rng = np.random.default_rng(21)
+    rows = {
+        "sample": _sorted_rows(rng, 1, 200 * 86, 3000, 16000)[0],
+        "batch": _sorted_rows(rng, 32, 512 * 114, 5000, 50000),
+        "poly_a": np.zeros(200 * 86, dtype=np.int64),
+        "poly_a_batch": np.zeros((4, 5000), dtype=np.int64),
+        "all_sentinel": np.full((3, 77), _SENT, dtype=np.int64),
+        "single": np.array([7], dtype=np.int64),
+        "runs_across_rows": np.array([[1, 2, 9, 9], [9, 9, 9, 9], [9, 10, _SENT, _SENT]]),
+        "ends_at_the_row_end": np.array([0, 3, 3, 3, 3, 3]),
+    }
+    for name, x in rows.items():
+        t = torch.from_numpy(x.astype(np.int64)).to(card)
+        for s in (t, t[..., ::2]):  # strided: every other slot of a sorted row stays sorted
+            _equal(kmer.unique_counts_sorted_plain(s),
+                   _launched("unique_counts_sorted", lambda: kmer.unique_counts_sorted(s)))
+    v, c, _ = kmer.unique_counts_sorted(torch.zeros(200 * 86, dtype=torch.int64, device=card))
+    assert int(c[0]) == 200 * 86 and int(c.sum()) == 200 * 86
+
+
+@pytest.mark.cuda
+def test_subtract_kernel_matches_plain(card):
+    rng = np.random.default_rng(22)
+
+    def counted(G, N, hi):
+        s = torch.from_numpy(_sorted_rows(rng, G, N, hi, N - N // 8)).to(card)
+        return kmer.unique_counts_sorted_plain(s)[:2]
+
+    def table(G, M, hi):
+        return torch.from_numpy(_sorted_rows(rng, G, M, hi, M - M // 10)).to(card)
+
+    v1, c1 = (x[0] for x in counted(1, 200 * 86, 6000))
+    v32, c32 = counted(32, 512 * 114, 9000)
+    all_sent = torch.full((32, 256 * 114), _SENT, dtype=torch.int64, device=card)
+    cases = {
+        "region": (v1, c1, table(1, 2 * 2986, 6000)[0], table(1, 300 * 86, 6000)[0]),
+        "region_no_normal": (v1, c1, table(1, 2 * 2986, 6000)[0], None),
+        "batch": (v32, c32, table(32, 2 * 4082, 9000), table(32, 256 * 114, 9000)),
+        "batch_empty_normal": (v32, c32, table(32, 2 * 4082, 9000), all_sent),
+        "strided": (v32[:, ::2], c32[:, ::2], table(32, 2 * 4082, 9000)[:, ::2],
+                    table(32, 2 * 4082, 9000)[:, 1::2]),
+        "poly_a": (*kmer.unique_counts_sorted_plain(
+            torch.zeros(5000, dtype=torch.int64, device=card))[:2],
+            torch.arange(1, 100, device=card), torch.zeros(1, dtype=torch.int64, device=card)),
+        "all_sentinel_sample": (torch.full((40,), _SENT, dtype=torch.int64, device=card),
+                                torch.zeros(40, dtype=torch.int32, device=card),
+                                torch.arange(0, 50, device=card), None),
+    }
+    for name, (v, c, ref, normal) in cases.items():
+        want = kmer.subtract_sorted_plain(v, c, ref, normal)
+        got = _launched("subtract_sorted", lambda: kmer.subtract_sorted(v, c, ref, normal))
+        _equal(want, got)
+        if name.startswith(("region", "batch")):
+            kept = int((got[0] != _SENT).sum())
+            assert 0 < kept < int((v != _SENT).sum()), name
+    # a table of width 0 finds nothing (the plain version indexes past it)
+    v, c = v32[:2], c32[:2]
+    empty = torch.empty((2, 0), dtype=torch.int64, device=card)
+    got = _launched("subtract_sorted", lambda: kmer.subtract_sorted(v, c, empty, empty))
+    _equal((v, c), got)
+
+
+@pytest.mark.cuda
+def test_kmer_kernels_refuse_on_card(card):
+    before = dict(kmer_cuda.LAUNCHES)
+    i8 = torch.zeros((2, 20), dtype=torch.int8, device=card)
+    with pytest.raises(TypeError, match="lengths"):
+        kmer.kmer_codes(i8, torch.zeros(2, dtype=torch.int64, device=card), 5)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kmer.kmer_codes(i8, torch.zeros(2, dtype=torch.int32), 5)
+    with pytest.raises(TypeError, match="counts"):
+        kmer.subtract_sorted(torch.zeros(3, dtype=torch.int64, device=card),
+                             torch.zeros(3, dtype=torch.int64, device=card),
+                             torch.zeros(3, dtype=torch.int64, device=card))
+    with pytest.raises(ValueError, match="capacity"):
+        kmer.kmer_codes(i8, torch.zeros(2, dtype=torch.int32, device=card), 16)
+    # zero-size inputs: empty outputs, no launch (CUDA refuses a 0-block grid)
+    km, valid = kmer.kmer_codes(i8[:0], torch.zeros(0, dtype=torch.int32, device=card), 15)
+    assert km.shape == valid.shape == (0, 6)
+    e = torch.empty((4, 0), dtype=torch.int64, device=card)
+    assert kmer.revcomp_kmers(e, 15).shape == (4, 0)
+    assert [o.shape for o in kmer.unique_counts_sorted(e)] == [(4, 0)] * 3
+    assert kmer.subtract_sorted(e, e.to(torch.int32), e)[0].shape == (4, 0)
+    torch.cuda.synchronize()
+    assert kmer_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_normal", [False, True])
+def test_kmer_host_wrappers_on_card_match_cpu(card, with_normal):
+    """sample_only_kmers, kmer_table and novel_kmer_normal_support on the
+    card equal their CPU outputs, through the kernels."""
+    rng = np.random.default_rng(23)
+    region = rng.integers(0, 4, 3000).astype(np.int8)
+    novel = rng.integers(0, 4, 300).astype(np.int8)
+    hap = np.concatenate([region[:1500], novel, region[1500:]])
+    codes = np.stack([hap[s:s + 100] for s in rng.integers(0, len(hap) - 100, 200)])
+    codes[rng.random(codes.shape) < 0.005] = 4
+    lengths = np.full(len(codes), 100, dtype=np.int32)
+    lengths[::17] = 9  # shorter than k
+    kw = {}
+    if with_normal:
+        n_codes = np.stack([hap[s:s + 100] for s in rng.integers(0, 1650, 80)])
+        kw = dict(normal_codes=n_codes, normal_lengths=np.full(80, 100, np.int32))
+    cases = [("sample", (codes, lengths, region, 15)),
+             ("poly_a", (np.zeros((50, 100), np.int8), np.full(50, 100, np.int32), region, 15)),
+             ("empty_batch", (codes[:0], lengths[:0], region, 15))]
+    for name, args in cases:
+        before = dict(kmer_cuda.LAUNCHES)
+        got = kmer.sample_only_kmers(*args, **kw, device=card)
+        moved = {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before}
+        want = kmer.sample_only_kmers(*args, **kw, device="cpu")
+        for a, b in zip(want, got):
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
+        sample = name != "empty_batch"  # an empty batch launches nothing for the sample
+        assert moved == {"kmer_codes": 1 + sample + with_normal, "revcomp_kmers": 1,
+                         "unique_counts_sorted": sample, "subtract_sorted": sample}, name
+    assert len(got[0]) == 0 and len(want[0]) == 0
+    assert len(kmer.sample_only_kmers(*cases[0][1], **kw, device=card)[0]) > 0
+    before = kmer_cuda.LAUNCHES["kmer_codes"]
+    ref_args = (region.reshape(1, -1), np.array([3000], np.int32), 15)
+    ref_table = kmer.kmer_table(*ref_args, device=card)
+    normal_table = kmer.kmer_table(codes, lengths, 15, device=card)
+    contigs = (hap[1450:1600], hap[:60], novel[:40])
+    support = [kmer.novel_kmer_normal_support(c, ref_table, normal_table, 15, device=card)
+               for c in contigs]
+    assert kmer_cuda.LAUNCHES["kmer_codes"] == before + 5
+    assert np.array_equal(ref_table, kmer.kmer_table(*ref_args, device="cpu"))
+    assert np.array_equal(normal_table, kmer.kmer_table(codes, lengths, 15, device="cpu"))
+    assert support == [kmer.novel_kmer_normal_support(c, ref_table, normal_table, 15,
+                                                      device="cpu") for c in contigs]
+    assert any(n > 0 for n, _ in support)
+
+
+@pytest.mark.cuda
+def test_per_region_kmers_on_card_matches_cpu(card):
+    """The batched form at the batch step's shapes, with a matched normal
+    (all PAD in region 0), through one launch of each kernel but
+    kmer_codes (three: sample, reference, normal)."""
+    G, R, L, LREF, RN = 32, 512, 128, 4096, 256
+    rng = np.random.default_rng(24)
+    hap = rng.integers(0, 4, (G, LREF)).astype(np.int8)
+    refs = hap.copy()
+    refs[:, 2048:2304] = rng.integers(0, 4, (G, 256))  # 256 novel bases a region
+
+    def tile(n, hi):
+        starts = rng.integers(0, hi - L + 1, (G, n))
+        return hap[np.arange(G)[:, None, None], starts[:, :, None] + np.arange(L)]
+
+    normal, normal_lengths = tile(RN, 2176), np.full((G, RN), L, np.int32)
+    normal[0], normal_lengths[0] = 4, 0
+    host = [torch.from_numpy(a) for a in (tile(R, LREF), np.full((G, R), L, np.int32), refs,
+                                          np.full(G, LREF, np.int32), normal, normal_lengths)]
+    want = _per_region_kmers(*host, k=15, min_count=2)
+    before = dict(kmer_cuda.LAUNCHES)
+    got = _per_region_kmers(*(a.to(card) for a in host), k=15, min_count=2)
+    torch.cuda.synchronize()
+    moved = {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before}
+    assert moved == {"kmer_codes": 3, "revcomp_kmers": 1, "unique_counts_sorted": 1,
+                     "subtract_sorted": 1}
+    _equal(tuple(want), tuple(g.cpu() for g in got))
+    assert int((want[1] > 0).sum()) > 0

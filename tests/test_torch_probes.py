@@ -401,6 +401,7 @@ def test_lean_launch_names_a_failed_launch_only_when_it_fails(monkeypatch):
 
 
 @pytest.mark.parametrize("module", ["breakmer_tpu_torch/ops/sw_cuda.py",
+                                    "breakmer_tpu_torch/ops/kmer_cuda.py",
                                     "breakmer_tpu_torch/tools/probe_mosaic_cummax.py",
                                     "breakmer_tpu_torch/tools/probe_swar_i16.py",
                                     "breakmer_tpu_torch/tools/sw_ceiling_probe.py"])
