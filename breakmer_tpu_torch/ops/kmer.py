@@ -68,7 +68,9 @@ def kmer_codes_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int
         window = codes[:, j : j + W]
         is_n = window >= 4
         bad |= is_n
-        acc = (acc << 2) | window.masked_fill(is_n, 0).to(torch.int64)
+        # the JAX function's uint32 arithmetic: a negative byte (no caller
+        # passes one) wraps as it does there
+        acc = ((acc << 2) | window.masked_fill(is_n, 0).to(torch.int64)) & _SENT
     pos = torch.arange(W, dtype=torch.int32, device=codes.device)[None, :]
     in_read = pos <= (lengths.to(torch.int32)[:, None] - k)
     valid = in_read & ~bad
@@ -220,8 +222,9 @@ def subtract_sorted(
     normal_sorted: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`subtract_sorted_plain`'s contract, dispatched by
-    ``sample_values``' device (on the card a table of width 0 holds
-    nothing)."""
+    ``sample_values``' device (a table of width 0 is refused where there
+    are queries: the plain version and the JAX function index past its
+    end, the card wrapper raises ``ValueError`` before it launches)."""
     return _pick("subtract_sorted", sample_values, kmer_cuda.subtract_sorted,
                  subtract_sorted_plain)(sample_values, sample_counts, ref_sorted, normal_sorted)
 

@@ -136,8 +136,9 @@ def subtract_sorted(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``ops.kmer.subtract_sorted`` on the card: int64 values and int32
     counts [..., N] against sorted int64 tables [..., M] with the same
-    leading dims (row g against table row g); a table of width 0 holds
-    nothing."""
+    leading dims (row g against table row g). A table of width 0 raises
+    ``ValueError`` where there are queries, before anything launches, as
+    the plain version and the JAX function fail on it."""
     tables = [ref_sorted] if normal_sorted is None else [ref_sorted, normal_sorted]
     _on_one_card("subtract_sorted", sample_values, sample_counts, *tables)
     _dtype("subtract_sorted", sample_values, torch.int64, "values")
@@ -151,6 +152,9 @@ def subtract_sorted(
         raise ValueError(
             f"subtract_sorted: values {tuple(sample_values.shape)}, counts "
             f"{tuple(sample_counts.shape)}, tables {[tuple(t.shape) for t in tables]}")
+    if rows and any(t.shape[-1] == 0 for t in tables):
+        raise ValueError(f"subtract_sorted: a table of width 0 "
+                         f"{[tuple(t.shape) for t in tables]} against {rows * n} queries")
     values, counts = sample_values.contiguous(), sample_counts.contiguous()
     ref = ref_sorted.contiguous()
     normal = None if normal_sorted is None else normal_sorted.contiguous()

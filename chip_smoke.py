@@ -321,6 +321,7 @@ class SWRecorder:
 # are tools/kmer_time.py's SERIAL (a region of the serial path) and BATCH
 # (phase 9's batch step)
 KMER_CONTIG = 60
+SENTINEL = 0xFFFFFFFF  # an invalid k-mer slot, as ops/kmer.py carries it
 KMER_KERNELS = {  # name: the jitted JAX function (an XLA program, no Pallas kernel)
     "kmer_codes": "breakmer_tpu/ops/kmer.py:43-44",
     "revcomp_kmers": "breakmer_tpu/ops/kmer.py:102-103",
@@ -433,20 +434,96 @@ def kmer_kernel_rows(dev, card):
                 r["contig_device_ms"] = queued_ms(lambda: kmer.kmer_codes(row, one, 15))
             lib_txt = "none" if lib is None else (
                 f"{r['library_ms']:.4f} ({r['library_device_ms']:.4f} device)")
+            r["bound_share"] = r["bound"][0] / r["device_ms"]
             print(f"  {name} {form} {r['shape']}: kernel == plain; device "
                   f"{r['device_ms']:.4f} ms (queued), a call {r['ms']:.4f} ms; plain "
                   f"{r['plain_ms']:.4f} ({r['plain_device_ms']:.4f} device); bound "
-                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); library {lib_txt} ms [{card}]",
-                  flush=True)
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), {100 * r['bound_share']:.1f} % of "
+                  f"the device time; library {lib_txt} ms [{card}]", flush=True)
             if form == "serial":
                 rows[name] = r
             else:
                 rows[name]["batch_step"] = {k: v for k, v in r.items() if k != "max_abs_err"}
+    kmer_edges(dev, card)
     call = kmer_time.call_profile(rng, reps=5)
     print(f"  sample_only_kmers {kmer_time.SERIAL}: {call['kernels']} CUDA kernels and "
           f"{call['copies']} copies a call (profiler), {call['device_ms']:.4f} ms of device "
           f"time, {call['wall_ms']:.4f} ms a call [{card}]", flush=True)
     return rows, {k: call[k] for k in ("kernels", "copies", "device_ms", "wall_ms")}
+
+
+def kmer_edges(dev, card):
+    """kmer_codes and subtract_sorted, whose kernels stage their inputs in
+    shared memory by spans and tiles, exact against their plain versions
+    at those designs' edges, one launch a call: spans that cross rows and
+    end ragged, k = 1, L < 16, a row of 5,000 bases, poly-A rows, negative
+    bytes (at the batch step's size too), codes off a 16-byte line;
+    queries in any order, a table range wider than one staged chunk,
+    tiles of SENTINEL alone, an odd row width, rows off a 16-byte line,
+    values past 32 bits."""
+    from breakmer_tpu_torch.ops import kmer, kmer_cuda
+    from breakmer_tpu_torch.timing import queued_ms
+
+    rng = np.random.default_rng(10)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def reads(R, L, n_rate=0.03, neg_rate=0.0):
+        codes = rng.integers(0, 4, (R, L)).astype(np.int8)
+        codes[rng.random((R, L)) < n_rate] = 4
+        neg = rng.random((R, L)) < neg_rate
+        codes[neg] = rng.integers(-128, 0, int(neg.sum()))
+        return on(codes), on(rng.integers(L // 2, L + 3, R).astype(np.int32))
+
+    def sorted_rows(G, N, hi, sent_from):
+        x = np.sort(rng.integers(0, hi, (G, N)), axis=1)
+        x[:, sent_from:] = SENTINEL
+        return on(x)
+
+    def once(name, fn, plain, *args):
+        before = kmer_cuda.LAUNCHES[name]
+        got = fn(*args)
+        torch.cuda.synchronize()
+        check(kmer_cuda.LAUNCHES[name] == before + 1, f"{name} (edges): not one launch")
+        check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(plain(*args), got)),
+              f"{name} (edges {[tuple(a.shape) for a in args if hasattr(a, 'shape')]}): "
+              "kernel != plain")
+
+    codes_cases = [(*reads(37, 23), 5), (*reads(3, 700), 15), (*reads(9, 30), 1),
+                   (*reads(300, 15), 15), (*reads(250, 9), 4), (*reads(1, 5000, 0.002), 15),
+                   (on(np.zeros((200, 100), np.int8)), on(np.full(200, 100, np.int32)), 15),
+                   (*reads(512, 128, 0.02, 0.03), 15), (*reads(32 * 512, 128, 0.01, 0.0005), 15)]
+    flat = on(np.concatenate([np.zeros(3), rng.integers(0, 4, 200 * 100)]).astype(np.int8))
+    codes_cases.append((flat[3:].view(200, 100), on(np.full(200, 100, np.int32)), 15))
+    for codes, lengths, k in codes_cases:
+        once("kmer_codes", kmer.kmer_codes, kmer.kmer_codes_plain, codes, lengths, k)
+    row, one = reads(1, 5000, 0.002)
+    row_ms = queued_ms(lambda: kmer.kmer_codes(row, one, 15))
+
+    v, c = kmer.unique_counts_sorted_plain(sorted_rows(4, 9000, 6000, 8000))[:2]
+    pv, pc = kmer.unique_counts_sorted_plain(torch.zeros((3, 5000), dtype=torch.int64,
+                                                         device=dev))[:2]
+    ov, oc = kmer.unique_counts_sorted_plain(sorted_rows(1, 4097, 3000, 4097))[:2]
+    subtract_cases = [
+        (v[:, torch.from_numpy(rng.permutation(9000)).to(dev)].contiguous(), c,
+         sorted_rows(4, 3000, 6000, 2700), sorted_rows(4, 5000, 6000, 4500)),
+        (v, c, on(np.sort(rng.integers(0, 6000, (4, 12000)), axis=1)),
+         sorted_rows(4, 30000, 6000, 27000)),
+        (*kmer.unique_counts_sorted_plain(sorted_rows(2, 20000, 900, 2500))[:2],
+         sorted_rows(2, 500, 900, 450), None),
+        (pv, pc, on(np.array([[0, 5, SENTINEL]] * 3)), on(np.array([[1, 2]] * 3))),
+        (ov, oc, sorted_rows(1, 777, 3000, 700), sorted_rows(1, 311, 3000, 280)),
+        (v[0, 1:], c[0, 1:], sorted_rows(1, 800, 6000, 720)[0], sorted_rows(1, 900, 6000, 810)[0]),
+    ]
+    wide = on(np.sort(rng.integers(-(1 << 40), 1 << 40, (150, 5000)), axis=1))
+    wv, wc = kmer.unique_counts_sorted_plain(wide)[:2]
+    subtract_cases.append((wv, wc, wide[:, ::3].contiguous(), wide[:, 1::7].contiguous()))
+    for args in subtract_cases:
+        once("subtract_sorted", kmer.subtract_sorted, kmer.subtract_sorted_plain, *args)
+    print(f"  kmer_codes and subtract_sorted exact at their span and tile edges "
+          f"({len(codes_cases)} and {len(subtract_cases)} cases, one launch a call); "
+          f"kmer_codes on a row of 5,000 bases {row_ms:.4f} ms (queued) [{card}]", flush=True)
 
 
 def phase_kmer(dev, card):
@@ -1661,7 +1738,7 @@ def main() -> int:
                                              "sharded_index_runner_launches",
                                              "multihost_launches", "agreement_launches",
                                              "main_path_by_shape", "batched_path_by_shape",
-                                             "contig_device_ms", "batch_step",
+                                             "contig_device_ms", "bound_share", "batch_step",
                                              "sample_only_kmers_call")
                          if k in row}})
     print(card_line())

@@ -592,7 +592,7 @@ def _read_codes(rng, R, L, k, n_rate=0.02):
 
 # the main path's shapes (a region's sample batch, its reference row, a
 # contig window) and the batch step's (G = 32 x R = 512 reads of 128)
-_KMER_SHAPES = [(200, 100), (1, 3000), (1, 60), (32 * 512, 128), (5, 15), (3, 16)]
+_KMER_SHAPES = [(200, 100), (1, 3000), (1, 60), (32 * 512, 128), (5, 15), (3, 16), (1, 5000)]
 
 
 @pytest.mark.cuda
@@ -701,11 +701,104 @@ def test_subtract_kernel_matches_plain(card):
         if name.startswith(("region", "batch")):
             kept = int((got[0] != _SENT).sum())
             assert 0 < kept < int((v != _SENT).sum()), name
-    # a table of width 0 finds nothing (the plain version indexes past it)
+    # a table of width 0 is refused before anything launches (the plain
+    # version indexes past it)
     v, c = v32[:2], c32[:2]
     empty = torch.empty((2, 0), dtype=torch.int64, device=card)
-    got = _launched("subtract_sorted", lambda: kmer.subtract_sorted(v, c, empty, empty))
-    _equal((v, c), got)
+    before = dict(kmer_cuda.LAUNCHES)
+    for ref, normal in ((empty, empty), (empty, None), (v, empty)):
+        with pytest.raises(ValueError, match="width 0"):
+            kmer.subtract_sorted(v, c, ref, normal)
+    torch.cuda.synchronize()
+    assert kmer_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_kmer_codes_kernel_on_span_edges(card):
+    """The span design's edges, exact against the plain version, at both
+    of the launch's forms (8 windows a thread where that fills the card, 2
+    below): spans that cross rows, R * W not a multiple of the span, k = 1,
+    L < 16 (every window starts a row: the rolling path), a contig window
+    and a row of 5,000 bases, poly-A rows, negative bytes (the rolling path
+    and its direct codes), and codes that start off a 16-byte line."""
+    rng = np.random.default_rng(24)
+
+    def reads(R, L, n_rate=0.03, neg_rate=0.0):
+        codes = rng.integers(0, 4, (R, L)).astype(np.int8)
+        codes[rng.random((R, L)) < n_rate] = 4
+        neg = rng.random((R, L)) < neg_rate
+        codes[neg] = rng.integers(-128, 0, int(neg.sum()))
+        return codes, rng.integers(L // 2, L + 3, R).astype(np.int32)
+
+    cases = [(*reads(37, 23), 5), (*reads(3, 700), 15), (*reads(9, 30), 1), (*reads(300, 15), 15),
+             (*reads(250, 9), 4), (*reads(1, 60), 15), (*reads(1, 5000, 0.002), 15),
+             (np.zeros((200, 100), np.int8), np.full(200, 100, np.int32), 15),
+             (*reads(512, 128, 0.02, 0.03), 15), (*reads(64, 64, 0.02, 0.03), 7),
+             (*reads(32 * 512, 128, 0.01, 0.0005), 15), (*reads(3000, 120, 0.02), 11)]
+    for codes, lengths, k in cases:
+        c, n = torch.from_numpy(codes).to(card), torch.from_numpy(lengths).to(card)
+        _equal(kmer.kmer_codes_plain(c, n, k), _launched("kmer_codes", lambda: kmer.kmer_codes(c, n, k)))
+        for off in (1, 7, 13):  # a contiguous view off the 16-byte line
+            flat = torch.from_numpy(np.concatenate([np.zeros(off, np.int8), codes.reshape(-1)]))
+            view = flat.to(card)[off:].view(codes.shape)
+            assert view.is_contiguous() and view.data_ptr() % 16 == off
+            _equal(kmer.kmer_codes_plain(view, n, k),
+                   _launched("kmer_codes", lambda: kmer.kmer_codes(view, n, k)))
+
+
+@pytest.mark.cuda
+def test_subtract_kernel_on_tile_edges(card):
+    """The tile design's edges, exact against the plain version, at both of
+    the launch's forms (8 slots a thread where that fills the card, 2
+    below): queries in any order, a table range wider than the staged
+    chunk, tiles of SENTINEL alone, poly-A, an odd row width and views off
+    the 16-byte line (slot by slot), many rows of several tiles, and values
+    past 32 bits or negative (the 64-bit search)."""
+    rng = np.random.default_rng(25)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    def counted(G, N, hi, sent_from):
+        s = on(_sorted_rows(rng, G, N, hi, sent_from))
+        return kmer.unique_counts_sorted_plain(s)[:2]
+
+    def table(G, M, hi):
+        return on(_sorted_rows(rng, G, M, hi, M - M // 10))
+
+    v, c = counted(4, 9000, 6000, 8000)
+    shuffled = v[:, torch.from_numpy(rng.permutation(9000)).to(card)].contiguous()
+    dense = on(np.sort(rng.integers(0, 6000, (4, 12000)), axis=1))
+    pv, pc = kmer.unique_counts_sorted_plain(torch.zeros((3, 5000), dtype=torch.int64,
+                                                         device=card))[:2]
+    ov, oc = counted(1, 4097, 3000, 4097)
+    bv, bc = counted(32, 512 * 114, 9000, 50000)
+    bshuf = bv[:, torch.from_numpy(rng.permutation(512 * 114)).to(card)].contiguous()
+    wide = torch.from_numpy(np.sort(rng.integers(-(1 << 40), 1 << 40, (3, 5000)), axis=1)).to(card)
+    wv, wc = kmer.unique_counts_sorted_plain(wide)[:2]
+    wtab = torch.sort(torch.cat([wide[:, ::3], on(rng.integers(-(1 << 40), 1 << 40, (3, 900)))],
+                                1), 1).values
+    cases = {
+        "unsorted_queries": (shuffled, c, table(4, 3000, 6000), table(4, 5000, 6000)),
+        "range_wider_than_a_chunk": (v, c, dense, table(4, 30000, 6000)),
+        "tiles_of_sentinel_alone": (*counted(2, 20000, 900, 2500), table(2, 500, 900), None),
+        "poly_a": (pv, pc, on(np.array([[0, 5, _SENT]] * 3)), on(np.array([[1, 2]] * 3))),
+        "poly_a_kept": (pv, pc, on(np.array([[1, 5, _SENT]] * 3)), None),
+        "odd_n": (ov, oc, table(1, 777, 3000), table(1, 311, 3000)),
+        "off_the_line": (v[0, 1:], c[0, 1:], table(1, 800, 6000)[0], table(1, 900, 6000)[0]),
+        "many_rows": (*counted(40, 5000, 4000, 4500), table(40, 600, 4000),
+                      table(40, 2000, 4000)),
+        "unsorted_batch": (bshuf, bc, table(32, 2 * 4082, 9000), table(32, 256 * 114, 9000)),
+        "wide_values": (wv, wc, wtab, wide[:, 1::7].contiguous()),
+        "wide_values_batch": (wv.repeat(50, 1), wc.repeat(50, 1), wtab.repeat(50, 1), None),
+    }
+    for name, (v_, c_, ref, normal) in cases.items():
+        want = kmer.subtract_sorted_plain(v_, c_, ref, normal)
+        got = _launched("subtract_sorted", lambda: kmer.subtract_sorted(v_, c_, ref, normal))
+        _equal(want, got)
+        if name.startswith(("unsorted", "range", "odd", "many", "wide")):
+            kept = int((got[0] != _SENT).sum())
+            assert 0 < kept < int((v_ != _SENT).sum()), name
 
 
 @pytest.mark.cuda

@@ -6,6 +6,9 @@ against the JAX package's functions (``breakmer_tpu.ops.kmer``) and the
 port's plain versions. Exact (tolerance 0: integer outputs). The kernels
 themselves run in ``tests/test_torch_cuda.py`` on a card."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,27 +153,145 @@ def test_a_non_empty_input_reaches_the_launch(wrappers):
     v = torch.zeros(3, dtype=torch.int64)
     with pytest.raises(RuntimeError, match="launch of subtract_sorted reached"):
         kmer_cuda.subtract_sorted(v, torch.zeros(3, dtype=torch.int32),
-                                  torch.zeros(0, dtype=torch.int64))
+                                  torch.zeros(2, dtype=torch.int64))
     assert wrappers == ["kmer_codes", "subtract_sorted"]
+
+
+@pytest.mark.parametrize("widths", [(0, None), (0, 4), (4, 0), (0, 0)])
+def test_subtract_wrapper_refuses_a_table_of_width_0(wrappers, widths):
+    """Where there are queries, a table of width 0 raises before anything
+    launches: the plain version and the JAX function index past its end."""
+    v = torch.zeros((2, 3), dtype=torch.int64)
+    c = torch.zeros((2, 3), dtype=torch.int32)
+    ref, normal = (None if m is None else torch.zeros((2, m), dtype=torch.int64) for m in widths)
+    with pytest.raises(ValueError, match="width 0"):
+        kmer_cuda.subtract_sorted(v, c, ref, normal)
+    with pytest.raises(RuntimeError, match="out of bounds"):
+        tk.subtract_sorted_plain(v, c, ref, normal)
+    assert wrappers == []
 
 
 # -- the kernels' algorithms in numpy ---------------------------------------
 
-def _kmer_codes_mirror(codes: np.ndarray, lengths: np.ndarray, k: int):
-    """kmer_codes_kernel per window: a uint64 shift-or of the k codes (a
-    code >= 4 adds 0 and invalidates; a negative byte adds its int64
-    sign extension), valid iff w <= length - k in wrapping int32."""
+def _cu_constants():
+    """The launch shapes ``csrc/kmer.cu`` states, read from the source, so
+    that the mirrors below run the kernels' own tiling."""
+    text = (Path(kmer_cuda.__file__).resolve().parent.parent / "csrc" / "kmer.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+            for name in ("KMER_THREADS", "KMER_V", "SUB_THREADS", "SUB_V", "SMALL_V", "PROBES",
+                         "CHUNK_PER_THREAD")}
+
+
+_CU = _cu_constants()
+_SMS = 132  # an H100's SMs (the launch asks the card)
+
+
+def _per_thread(elements: int, threads: int, v: int) -> int:
+    """The launch's choice: v elements a thread, or SMALL_V where blocks of
+    ``threads * v`` would leave an SM without one."""
+    return v if -(-elements // (threads * v)) >= _SMS else _CU["SMALL_V"]
+
+
+def _kmer_codes_mirror(codes: np.ndarray, lengths: np.ndarray, k: int,
+                       threads: int = _CU["KMER_THREADS"], per_thread: int = 0,
+                       offset: int = 0, seed: int = 0):
+    """kmer_codes_kernel, block by block and thread by thread. A block owns
+    a span of ``threads * per_thread`` windows of the flat [R * W] output
+    and stages the one run of code bytes it reads, from the 16-byte line it
+    starts in (``offset``: the codes' address mod 16), zeros outside the
+    run; the stage's size is held to the shared memory the launch gives.
+    Per line it packs the two-bit codes (first byte on top) and the flags
+    of bytes in 4..127; the words past the last line hold random bits. A
+    thread computes ``per_thread`` consecutive windows: where W >=
+    ``per_thread`` and the stage holds no negative byte, by shifts of 64
+    bits of packed codes and 32 flag bits from its first window's first
+    byte and, past its row's end, from the next row's first byte; else by
+    the rolling code (k steps at its first window and at each row start,
+    else one byte rolled in under the 2k-bit mask, the direct uint32 code
+    for a window with a negative byte). ``per_thread`` 0: the launch's
+    choice. Valid iff w <= length - k in wrapping int32 and no byte >= 4."""
+    rng = np.random.default_rng(seed)
     R, L = codes.shape
     W = L - k + 1
-    acc = np.zeros((R, W), dtype=np.uint64)
-    bad = np.zeros((R, W), dtype=bool)
-    for j in range(k):
-        x = codes[:, j:j + W].astype(np.int64)
-        bad |= x >= 4
-        acc = (acc << np.uint64(2)) | np.where(x >= 4, 0, x).astype(np.uint64)
-    last = (lengths.astype(np.uint32) - np.uint32(k)).astype(np.int32)
-    ok = (np.arange(W)[None, :] <= last[:, None]) & ~bad
-    return np.where(ok, acc.astype(np.int64), SENT), ok
+    per_thread = per_thread or _per_thread(R * W, threads, _CU["KMER_V"])
+    span = threads * per_thread
+    flat = codes.reshape(-1).astype(np.int64)
+    km = np.full(R * W, SENT, dtype=np.int64)
+    ok = np.zeros(R * W, dtype=bool)
+    mask, kmask = (1 << (2 * k)) - 1, (1 << k) - 1
+    cap = (span - 1 + ((span - 1) // W + 1) * (k - 1) + k + 30) // 16 + 1  # kmer_codes_lines
+    assert max(16 * cap + 4 * (cap + 2) + 2 * (cap + 4), 8 * span) <= 48 * 1024
+
+    def direct(x):  # the JAX function's uint32 code of the bytes x
+        acc = 0
+        for b in x:
+            acc = ((acc << 2) | (0 if b >= 4 else b & 0xFFFFFFFF)) & 0xFFFFFFFF
+        return acc
+
+    def lasts(r):
+        return (int(lengths[r]) - k + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+    for e0 in range(0, R * W, span):
+        e_end = min(e0 + span, R * W)
+        r0, r1 = e0 // W, (e_end - 1) // W
+        lo, hi = r0 * L + e0 - r0 * W, r1 * L + (e_end - 1 - r1 * W) + k
+        base = lo - (lo + offset) % 16  # stage byte i is flat byte base + i
+        lines = -(-(hi - base) // 16)
+        assert lines <= cap
+        stage = np.zeros(16 * lines, dtype=np.int64)
+        stage[lo - base:hi - base] = flat[lo:hi]
+        packed = [sum(int(b & 3) << (30 - 2 * j) for j, b in enumerate(stage[16 * q:16 * q + 16]))
+                  for q in range(lines)] + [int(x) for x in rng.integers(0, 2 ** 32, 2)]
+        bad = 0
+        for i, b in enumerate(stage):
+            bad |= int(4 <= b <= 127) << i
+        bad |= int(rng.integers(0, 2 ** 62)) << (16 * lines)  # the flags past the last line
+        fast = W >= per_thread and not (stage < 0).any()
+
+        def byte(i):  # the rolling path reads the run only
+            assert lo <= base + i < hi, (i, lo, hi)
+            return stage[i]
+
+        for first in range(e0, e_end, per_thread):
+            nwin = min(per_thread, e_end - first)
+            r, w = divmod(first, W)
+            row = r * L - base  # stage index of (r, 0)
+            if fast:
+                nr = W - w
+                z, flags = [], []
+                for p in (row + w, row + L)[:1 + (nr < nwin)]:
+                    q = p >> 4
+                    x96 = packed[q] << 64 | packed[q + 1] << 32 | packed[q + 2]
+                    z.append(((x96 << 2 * (p & 15)) >> 32) & (2 ** 64 - 1))
+                    flags.append((bad >> p) & 0xFFFFFFFF)
+                for i in range(nwin):
+                    h, s = (1, i - nr) if i >= nr else (0, i)
+                    pos, last = (s, lasts(r + 1)) if h else (w + i, lasts(r))
+                    ok[first + i] = pos <= last and (flags[h] >> s) & kmask == 0
+                    if ok[first + i]:
+                        km[first + i] = (z[h] >> (64 - 2 * (s + k))) & mask
+                continue
+            for i in range(nwin):
+                e = first + i
+                if i == 0 or w == 0:
+                    last, acc, bad_at, neg_at = lasts(r), 0, -1, -1
+                    for j in range(k):
+                        x = byte(row + w + j)
+                        bad_at = w + j if x >= 4 else bad_at
+                        neg_at = w + j if x < 0 else neg_at
+                        acc = (acc << 2) | (x & 3)
+                else:
+                    x = byte(row + w + k - 1)
+                    bad_at = w + k - 1 if x >= 4 else bad_at
+                    neg_at = w + k - 1 if x < 0 else neg_at
+                    acc = ((acc << 2) | (x & 3)) & mask
+                ok[e] = w <= last and bad_at < w
+                if ok[e]:
+                    km[e] = direct(stage[row + w:row + w + k]) if neg_at >= w else acc
+                w += 1
+                if w == W:
+                    r, w, row = r + 1, 0, row + L
+    return km.reshape(R, W), ok.reshape(R, W)
 
 
 def _revcomp_mirror(x: np.ndarray, k: int) -> np.ndarray:
@@ -213,33 +334,101 @@ def _unique_counts_mirror(s: np.ndarray):
     return (values.reshape(s.shape), counts.reshape(s.shape), start.reshape(s.shape), loads)
 
 
-def _lower_bound_member(t: np.ndarray, v) -> bool:
+def _warp_bound(t: np.ndarray, v, upper: bool, probes: int = _CU["PROBES"]) -> int:
+    """warp_bound: lower_bound (upper: upper_bound) of v in the sorted t,
+    N = 32 * ``probes`` probes a round at lo + d (2 j + 1) / 2N (a shift),
+    the first probe right of the answer and the one before it bounding
+    the next round."""
+    n = 32 * probes
+    shift = n.bit_length()  # log2(2N)
     lo, hi = 0, len(t)
     while lo < hi:
-        mid = lo + (hi - lo) // 2
-        if t[mid] < v:
-            lo = mid + 1
-        else:
-            hi = mid
-    return lo < len(t) and t[lo] == v
+        d = hi - lo
+        pos = [lo + ((d * (2 * j + 1)) >> shift) for j in range(n)]
+        assert all(lo <= p < hi for p in pos)
+        right = [t[p] > v if upper else t[p] >= v for p in pos]
+        assert right == sorted(right)  # a suffix of the probes
+        j = right.index(True) if any(right) else n
+        lo, hi = (pos[j - 1] + 1 if j > 0 else lo), (pos[j] if j < n else hi)
+    return lo
 
 
-def _subtract_mirror(values, counts, ref, normal=None):
-    """subtract_sorted_kernel per element of rows [..., n] against table
-    rows [..., m] (row g against row g)."""
+def _member_staged(s, a: int, b: int, u, found):
+    """member_staged for one thread's consecutive slots u against the
+    sorted s[a:b]: the thread's own part, [lower_bound(umin),
+    upper_bound(umax)) of its values that are not SENTINEL, by two
+    branchless searches; then each slot's branchless search of the last
+    entry <= u[i] in that part. ORs found[i]."""
+    real = [x for x in u if x != SENT]
+    if a >= b or not real:
+        return
+    umin, umax = min(real), max(real)
+    p = q = a
+    n = b - a
+    while n > 1:
+        half = n >> 1
+        p = p + half if s[p + half] < umin else p
+        q = q + half if s[q + half] <= umax else q
+        n -= half
+    lo, hi = p + (s[p] < umin), q + (s[q] <= umax)
+    if lo >= hi:
+        return
+    for i, x in enumerate(u):
+        at, n = lo, hi - lo
+        while n > 1:
+            half = n >> 1
+            at = at + half if s[at + half] <= x else at
+            n -= half
+        found[i] |= s[at] == x
+
+
+def _subtract_mirror(values, counts, ref, normal=None, threads: int = _CU["SUB_THREADS"],
+                     per_thread: int = 0, chunk: int = _CU["SUB_THREADS"] * _CU["CHUNK_PER_THREAD"],
+                     probes: int = _CU["PROBES"]):
+    """subtract_sorted_kernel tile by tile of rows [..., n] against table
+    rows [..., m] (row g against row g): the min and max of a tile's values
+    that are not SENTINEL, their range in each table row by
+    ``_warp_bound``, the two ranges staged ``chunk`` entries at a time, and
+    each thread's ``per_thread`` consecutive slots searched there by
+    ``_member_staged``, its found flags kept across the chunks; a tile is
+    ``threads * per_thread`` slots (``per_thread`` 0: the launch's
+    choice). Raises where the launch refuses (a table of width 0); also
+    returns the chunks each tile staged."""
     n = values.shape[-1]
     v2, c2 = values.reshape(-1, n), counts.reshape(-1, n)
-    r2 = ref.reshape(len(v2), -1)
-    n2 = None if normal is None else normal.reshape(len(v2), -1)
+    per_thread = per_thread or _per_thread(len(v2) * -(-n // (threads * _CU["SUB_V"])) *
+                                           threads * _CU["SUB_V"], threads, _CU["SUB_V"])
+    tile = threads * per_thread
+    tables = [ref.reshape(len(v2), -1)] + ([] if normal is None else [normal.reshape(len(v2), -1)])
+    if any(t.shape[-1] == 0 for t in tables):
+        raise ValueError("a table of width 0")
     out_v, out_c = np.full(v2.shape, SENT, dtype=np.int64), np.zeros(v2.shape, dtype=np.int32)
+    staged = []
     for g in range(len(v2)):
-        for i in range(n):
-            v = v2[g, i]
-            keep = (v != SENT and not _lower_bound_member(r2[g], v)
-                    and not (n2 is not None and _lower_bound_member(n2[g], v)))
-            if keep:
-                out_v[g, i], out_c[g, i] = v, c2[g, i]
-    return out_v.reshape(values.shape), out_c.reshape(values.shape)
+        for t0 in range(0, n, tile):
+            v, c = v2[g, t0:t0 + tile], c2[g, t0:t0 + tile]
+            real = v[v != SENT]
+            found = [False] * len(v)
+            staged.append(0)
+            if len(real):
+                lo, hi = real.min(), real.max()
+                ends = [(_warp_bound(t[g], lo, False, probes), _warp_bound(t[g], hi, True, probes))
+                        for t in tables]
+                run = np.concatenate([t[g, a:b] for t, (a, b) in zip(tables, ends)])
+                split = ends[0][1] - ends[0][0]
+                for c0 in range(0, len(run), chunk):
+                    staged[-1] += 1
+                    s = run[c0:c0 + chunk]
+                    cut = min(len(s), max(0, split - c0))
+                    for i0 in range(0, len(v), per_thread):
+                        u, f = list(v[i0:i0 + per_thread]), found[i0:i0 + per_thread]
+                        _member_staged(s, 0, cut, u, f)
+                        _member_staged(s, cut, len(s), u, f)
+                        found[i0:i0 + per_thread] = f
+            keep = (v != SENT) & ~np.array(found, dtype=bool)
+            out_v[g, t0:t0 + tile] = np.where(keep, v, SENT)
+            out_c[g, t0:t0 + tile] = np.where(keep, c, 0)
+    return out_v.reshape(values.shape), out_c.reshape(values.shape), staged
 
 
 def _jax_rows(fn, *rows):
@@ -253,6 +442,22 @@ def _as_u32(a):
     return np.asarray(a, dtype=np.int64).astype(np.uint32)
 
 
+_SMALL_SPAN = dict(threads=4, per_thread=3, offset=5)  # spans of 12 windows: many at a small size
+
+
+def _held_to_jax_and_plain(codes, lengths, k, **span):
+    """The kmer_codes mirror (at ``span``) equal to the JAX function and to
+    the port's plain version; returns the mirror's output."""
+    km, ok = _kmer_codes_mirror(codes, lengths, k, **span)
+    jkm, jok = jk.kmer_codes(jnp.asarray(codes), jnp.asarray(lengths), k)
+    np.testing.assert_array_equal(km, np.asarray(jkm).astype(np.int64))
+    np.testing.assert_array_equal(ok, np.asarray(jok))
+    pkm, pok = tk.kmer_codes_plain(torch.from_numpy(codes), torch.from_numpy(lengths), k)
+    np.testing.assert_array_equal(km, pkm.numpy())
+    np.testing.assert_array_equal(ok, pok.numpy())
+    return km, ok
+
+
 @pytest.mark.parametrize("k", [1, 5, 11, 15])
 def test_kmer_codes_mirror_matches_jax_and_plain(k):
     rng = np.random.default_rng(k)
@@ -262,27 +467,61 @@ def test_kmer_codes_mirror_matches_jax_and_plain(k):
     codes[3, :] = 4  # an all-N row
     lengths = rng.integers(0, L + 20, R).astype(np.int32)  # < k, inside, > L
     lengths[:4] = (0, k - 1, L, L + 7)
-    km, ok = _kmer_codes_mirror(codes, lengths, k)
-    jkm, jok = jk.kmer_codes(jnp.asarray(codes), jnp.asarray(lengths), k)
-    np.testing.assert_array_equal(km.astype(np.uint32), np.asarray(jkm))
-    np.testing.assert_array_equal(ok, np.asarray(jok))
-    pkm, pok = tk.kmer_codes_plain(torch.from_numpy(codes), torch.from_numpy(lengths), k)
-    np.testing.assert_array_equal(km, pkm.numpy())
-    np.testing.assert_array_equal(ok, pok.numpy())
+    _held_to_jax_and_plain(codes, lengths, k)
 
 
 def test_kmer_codes_mirror_matches_plain_on_every_byte():
-    """Every int8 value, negative ones included (no caller passes one, but
-    the kernel keeps the plain version's int64 sign extension)."""
+    """Every int8 value, negative ones included: no caller passes one, but
+    the plain version and the kernel give the JAX function's uint32 code
+    (a negative byte adds its 32-bit two's complement), not an int64 sign
+    extension."""
     codes = np.arange(-128, 128, dtype=np.int16).astype(np.int8).reshape(16, 16)
     codes = np.concatenate([codes, np.tile(np.arange(4, dtype=np.int8), (16, 4))], axis=1)
     lengths = np.full(16, 80, dtype=np.int32)
     lengths[0] = np.iinfo(np.int32).min  # wraps below k
     for k in (1, 3, 15):
-        km, ok = _kmer_codes_mirror(codes, lengths, k)
-        pkm, pok = tk.kmer_codes_plain(torch.from_numpy(codes), torch.from_numpy(lengths), k)
-        np.testing.assert_array_equal(km, pkm.numpy())
-        np.testing.assert_array_equal(ok, pok.numpy())
+        for span in ({}, dict(per_thread=_CU["KMER_V"]), _SMALL_SPAN):
+            km, _ = _held_to_jax_and_plain(codes, lengths, k, **span)
+            assert km.min() >= 0 and km.max() <= SENT
+    row = np.array([[0, 1, -1, 2, 3, 0, 1]], dtype=np.int8)
+    km, _ = _held_to_jax_and_plain(row, np.array([7], dtype=np.int32), 3)
+    assert km.tolist() == [[4294967295, 4294967294, 4294967291, 44, 49]]
+
+
+def _span_cases():
+    """Named (codes, lengths, k) at the edges of the rolling design."""
+    rng = np.random.default_rng(31)
+
+    def reads(R, L, n_rate=0.03, neg_rate=0.0):
+        codes = rng.integers(0, 4, (R, L)).astype(np.int8)
+        codes[rng.random((R, L)) < n_rate] = 4
+        codes[rng.random((R, L)) < neg_rate] = rng.integers(-128, 0, 1)[0]
+        lengths = rng.integers(L // 2, L + 3, R).astype(np.int32)
+        return codes, lengths
+
+    return {
+        "spans_cross_rows": (*reads(37, 23), 5),
+        "rw_not_a_multiple_of_the_span": (*reads(7, 50), 11),  # 280 windows
+        "k_1": (*reads(9, 30), 1),
+        "w_1": (*reads(30, 15), 15),  # L < 16: every window starts a row
+        "l_under_16": (*reads(25, 9), 4),
+        "contig_window": (*reads(1, 60), 15),
+        "one_row_of_5000": (*reads(1, 5000, 0.002), 15),
+        "poly_a_rows": (np.zeros((20, 100), np.int8), np.full(20, 100, np.int32), 15),
+        "negative_bytes_rolled": (*reads(12, 64, 0.02, 0.03), 7),
+    }
+
+
+@pytest.mark.parametrize("case", list(_span_cases()))
+def test_kmer_codes_mirror_on_span_edges(case):
+    """Each edge at the launch's own choice of span, at 8 windows a thread,
+    and at spans of 12 and 21 windows (which cross rows, end ragged and
+    restart the roll at every size here), with the codes off a 16-byte
+    line, held to JAX and to the plain version."""
+    codes, lengths, k = _span_cases()[case]
+    for span in ({}, dict(per_thread=_CU["KMER_V"], offset=9), _SMALL_SPAN,
+                 dict(threads=3, per_thread=7, offset=11)):
+        _held_to_jax_and_plain(codes, lengths, k, **span)
 
 
 @pytest.mark.parametrize("k", [1, 5, 15])
@@ -356,6 +595,24 @@ def _tables(rng, values, m, hit_rate):
     return np.stack(out).reshape(*values.shape[:-1], m).astype(np.int64)
 
 
+def _subtract_held(v, c, ref, normal=None, **tiling):
+    """The subtract mirror (at ``tiling``) equal to the JAX function, row
+    by row, and to the plain version; returns the mirror's output."""
+    got = _subtract_mirror(v, c, ref, normal, **tiling)
+    want = _jax_rows(jk.subtract_sorted, *[jnp.asarray(a) for a in (
+        _as_u32(v), c, _as_u32(ref), *([] if normal is None else [_as_u32(normal)]))])
+    np.testing.assert_array_equal(got[0], want[0].astype(np.int64))
+    np.testing.assert_array_equal(got[1], want[1])
+    plain = tk.subtract_sorted_plain(*(torch.from_numpy(a) for a in (v, c, ref)),
+                                      None if normal is None else torch.from_numpy(normal))
+    for a, b in zip(got, plain):
+        np.testing.assert_array_equal(a, b.numpy())
+    return got
+
+
+_SMALL_TILE = dict(threads=4, per_thread=4, chunk=8, probes=1)
+
+
 @pytest.mark.parametrize("G,with_normal", [(1, False), (1, True), (4, True)])
 def test_subtract_mirror_matches_jax(G, with_normal):
     rng = np.random.default_rng(G + 2 * with_normal)
@@ -364,40 +621,101 @@ def test_subtract_mirror_matches_jax(G, with_normal):
     v, c, _, _ = _unique_counts_mirror(raw.astype(np.int64))
     ref = _tables(rng, v, 30, 0.3)
     normal = _tables(rng, v, 17, 0.2) if with_normal else None
-    got = _subtract_mirror(v, c, ref, normal)
-    want = _jax_rows(jk.subtract_sorted, *[jnp.asarray(a) for a in (
-        _as_u32(v), c, _as_u32(ref), *([] if normal is None else [_as_u32(normal)]))])
-    np.testing.assert_array_equal(_as_u32(got[0]), want[0])
-    np.testing.assert_array_equal(got[1], want[1])
-    assert 0 < int((got[0] != SENT).sum()) < int((v != SENT).sum())
-    plain = tk.subtract_sorted_plain(*(torch.from_numpy(a) for a in (v, c, ref)),
-                                      None if normal is None else torch.from_numpy(normal))
-    for a, b in zip(got, plain):
-        np.testing.assert_array_equal(a, b.numpy())
+    for tiling in ({}, _SMALL_TILE):
+        got = _subtract_held(v, c, ref, normal, **tiling)
+        assert 0 < int((got[0] != SENT).sum()) < int((v != SENT).sum())
 
 
 def test_subtract_mirror_on_sentinel_and_empty_tables():
-    """All-SENTINEL tables subtract nothing (against JAX); a table of width
-    0 finds nothing (JAX and the plain version index past its end, so the
-    mirror is held to numpy's set difference)."""
+    """All-SENTINEL tables subtract nothing (against JAX and the plain
+    version); a table of width 0 is refused where there are queries, as
+    JAX (TypeError) and the plain version (RuntimeError) fail on it."""
     rng = np.random.default_rng(5)
     raw = np.sort(rng.integers(0, 30, (2, 40)), axis=1)
     raw[1, 25:] = SENT
     v, c, _, _ = _unique_counts_mirror(raw.astype(np.int64))
     sent_table = np.full((2, 9), SENT, dtype=np.int64)
-    got = _subtract_mirror(v, c, sent_table, sent_table)
-    want = _jax_rows(jk.subtract_sorted, jnp.asarray(_as_u32(v)), jnp.asarray(c),
-                     jnp.asarray(_as_u32(sent_table)), jnp.asarray(_as_u32(sent_table)))
-    np.testing.assert_array_equal(_as_u32(got[0]), want[0])
-    np.testing.assert_array_equal(got[1], want[1])
-    np.testing.assert_array_equal(got[0], v)
+    for tiling in ({}, _SMALL_TILE):
+        got = _subtract_held(v, c, sent_table, sent_table, **tiling)
+        np.testing.assert_array_equal(got[0], v)
     empty = np.zeros((2, 0), dtype=np.int64)
     ref = np.sort(np.stack([rng.choice(30, 8, replace=False) for _ in v]), axis=1)
-    for normal in (None, empty):
-        out_v, out_c = _subtract_mirror(v, c, ref, normal)
-        keep = (v != SENT) & ~np.stack([np.isin(v[g], ref[g]) for g in range(2)])
-        np.testing.assert_array_equal(out_v, np.where(keep, v, SENT))
-        np.testing.assert_array_equal(out_c, np.where(keep, c, 0))
-    out_v, out_c = _subtract_mirror(v, c, empty, empty)
-    np.testing.assert_array_equal(out_v, v)
-    np.testing.assert_array_equal(out_c, c)
+    for r, normal in ((ref, empty), (empty, None), (empty, empty)):
+        with pytest.raises(ValueError, match="width 0"):
+            _subtract_mirror(v, c, r, normal)
+        with pytest.raises(RuntimeError, match="out of bounds"):
+            tk.subtract_sorted_plain(*(torch.from_numpy(a) for a in (v, c, r)),
+                                     None if normal is None else torch.from_numpy(normal))
+    with pytest.raises(TypeError):
+        jk.subtract_sorted(jnp.asarray(_as_u32(v[0])), jnp.asarray(c[0]),
+                           jnp.asarray(_as_u32(empty[0])))
+
+
+def _tile_cases():
+    """Named (values, counts, ref, normal) at the edges of the tile design."""
+    rng = np.random.default_rng(41)
+
+    def counted(G, N, hi, sent_from):
+        raw = np.sort(rng.integers(0, hi, (G, N)), axis=1)
+        raw[:, sent_from:] = SENT
+        return _unique_counts_mirror(raw.astype(np.int64))[:2]
+
+    v, c = counted(2, 3000, 2000, 2600)
+    dense = np.sort(rng.choice(2000, (2, 12000), replace=True), axis=1).astype(np.int64)
+    shuffled = v.copy()
+    for row in shuffled:
+        rng.shuffle(row)
+    pv, pc = _unique_counts_mirror(np.zeros((3, 700), dtype=np.int64))[:2]
+    ov, oc = counted(1, 2049, 500, 2049)
+    return {
+        # tables of 12,000 and 24,000 entries over the values' 2,000 codes:
+        # more than a chunk of entries in a tile's range at either tiling
+        "range_wider_than_a_chunk": (v, c, dense, np.sort(np.concatenate([dense, dense], 1))),
+        "unsorted_queries": (shuffled, c, _tables(rng, v, 400, 0.4), _tables(rng, v, 300, 0.2)),
+        "tiles_of_sentinel_alone": (*counted(2, 6200, 900, 1500), _tables(rng, v[:, :1], 50, 0),
+                                    None),
+        "poly_a": (pv, pc, np.array([[0, 5, SENT]] * 3, dtype=np.int64),
+                   np.array([[1, 2]] * 3, dtype=np.int64)),
+        "poly_a_not_in_the_tables": (pv, pc, np.array([[1, 5, SENT]] * 3, dtype=np.int64), None),
+        "odd_n": (ov, oc, _tables(rng, ov, 77, 0.3), _tables(rng, ov, 31, 0.3)),
+    }
+
+
+@pytest.mark.parametrize("case", list(_tile_cases()))
+def test_subtract_mirror_on_tile_edges(case):
+    """Each edge at the kernel's own tiling and at tiles of 16 slots with
+    chunks of 8 entries, held to JAX and to the plain version."""
+    v, c, ref, normal = _tile_cases()[case]
+    for tiling in ({}, _SMALL_TILE, dict(per_thread=_CU["SUB_V"])):
+        got = _subtract_held(v, c, ref, normal, **tiling)
+        if case == "range_wider_than_a_chunk":
+            assert max(got[2]) > 1
+        if case == "tiles_of_sentinel_alone":
+            assert min(got[2]) == 0
+
+
+@pytest.mark.parametrize("probes", [1, 2, 8])
+def test_warp_bound_matches_searchsorted(probes):
+    rng = np.random.default_rng(3)
+    for m in (1, 2, 32, 33, 34, 256, 257, 258, 1089, 29184, 66049, 70000):
+        t = np.sort(rng.integers(0, 3 * m, m))
+        for v in (*rng.integers(-2, 3 * m + 2, 20), t[0], t[-1]):
+            assert _warp_bound(t, v, False, probes) == np.searchsorted(t, v, "left")
+            assert _warp_bound(t, v, True, probes) == np.searchsorted(t, v, "right")
+
+
+@pytest.mark.parametrize("order", ["ascending", "any"])
+def test_member_staged_matches_isin(order):
+    """Slots with SENTINEL gaps, ascending (the merge) or in any order (a
+    binary search each), against np.isin over every width."""
+    rng = np.random.default_rng(4)
+    for n in (1, 2, 3, 7, 8, 9, 255, 2048):
+        s = np.sort(rng.integers(0, 2 * n, n))
+        for _ in range(20):
+            u = rng.integers(-1, 2 * n + 1, 8)
+            u[rng.random(8) < 0.3] = SENT
+            if order == "ascending":
+                u[u != SENT] = np.sort(u[u != SENT])
+            found = [False] * 8
+            _member_staged(s, 0, n, list(u), found)
+            assert found == [bool(x != SENT and np.isin(x, s)) for x in u]
