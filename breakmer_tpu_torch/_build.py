@@ -118,7 +118,7 @@ def library() -> ctypes.CDLL:
         i64 = ctypes.c_int64
         for name, args in (
                 ("kmer_codes", [vp, vp, i64, i32, i32, vp, vp]),
-                ("revcomp_kmers", [vp, i64, i32, vp]),
+                ("revcomp_kmers", [vp, i64, i64, i32, i32, vp]),
                 ("unique_counts_sorted", [vp, i64, i64, vp, vp, vp]),
                 ("subtract_sorted", [vp, vp, vp, i64, vp, i64, i64, i64, vp, vp])):
             fn = getattr(lib, f"{name}_launch")

@@ -53,14 +53,30 @@
 //   straight from a thread's consecutive windows, each 16-byte store of a
 //   warp half-fills its sectors, which measured slower). A thread's V
 //   validity bytes are one store.
-// - revcomp_kmers: one thread an element, k two-bit steps in registers.
-// - unique_counts: one thread an element; one whose element starts a run
-//   counts it as upper_bound(row, v) - i, found by a galloping search from
-//   i (probes at i + 1, i + 2, i + 4, ... then a binary search in the last
-//   gap): log2 of the run's length in loads, so a poly-A region's single
-//   k-mer of R * W copies costs about 20 loads, not R * W. That is the JAX
-//   function's min(next run start, total valid): the first index past a
-//   run is the next distinct code or the first SENTINEL.
+// - revcomp_kmers: constant time a code (bit reversal, a swap of
+//   neighbouring bits, a complement, a shift; no loop over k), a block of
+//   256 threads owning 256 V codes of a row (V = 8, or 2 where that would
+//   leave an SM idle), in coalesced 16-byte loads and stores. Its
+//   both-strand form writes a row's codes and then their reverse
+//   complements, [G, M] -> [G, 2M], in the same pass: the table the
+//   engine sorts, which the eager form built with a second launch (a
+//   torch.cat) and a second pass over the codes.
+// - unique_counts: a block of 256 threads owns a tile of 2,048 slots of one
+//   row, 8 a thread, or, where that would leave an SM idle, a block of 128
+//   threads a tile of 256 (a serial region's 17,200 slots in 68 blocks),
+//   loaded with coalesced 16-byte loads. A run ends at the next boundary (an index
+//   whose value differs from the one before it, or the row's end), which is
+//   the JAX function's min(next run start, total valid) on a sorted row
+//   whose SENTINEL slots come last. The next boundary after each slot is a
+//   reverse min-scan of the tile's boundaries, as the JAX function's
+//   associative_scan: within a thread's pair, across the warp by a ballot
+//   (the first later lane with a boundary), across the warps and the
+//   tile's segments through shared memory, one barrier. Only the run that
+//   holds the tile's last slot may end past the tile: the last warp finds
+//   its end by one galloping search a tile (32 probes at 2^lane past the
+//   tile, loaded with the tile, then rounds of 32 probes that narrow the
+//   gap 32-fold), where a search from every run start would be a chain of
+//   about 2 log2(run) loads that holds its warp.
 // - subtract_sorted: a block of 128 threads owns a tile of 128 V slots of
 //   one row (V = 8, or 2 where tiles of 1,024 would leave an SM idle),
 //   loaded with coalesced 16-byte (values) and 8-byte (counts) loads, and
@@ -81,16 +97,21 @@
 //   last value, keep the kernel exact for queries in any order, only
 //   slower. A table of width 0 is refused (the plain versions index past
 //   its end).
-// revcomp_kmers and unique_counts use no shared memory and no barrier. A
-// kernel never writes where it reads, so the outputs are fresh tensors.
+// revcomp_kmers uses no shared memory and no barrier. A kernel never
+// writes where it reads, so the outputs are fresh tensors.
 //
 // On an NVIDIA H100 80GB HBM3 at 700.00 W (device time of queued calls,
 // tools/kmer_time.py, this design against the one-thread-an-element one in
 // turns; PERF.md, section 6): kmer_codes 9.4-9.5 us at the batch step's
 // shape (29.1 before; 60 % of its bound) and 3.6 at a serial region's
 // (3.1 before: the stage's barriers at 34 blocks); subtract_sorted
-// 31.2-31.3 (84.0; 52 %) and 5.0 (7.7). revcomp_kmers takes 2.4-3.0 us
-// and unique_counts 2.8 and 14.2-14.3 (bound 11.7), as before.
+// 31.2-31.3 (84.0; 52 %) and 5.0 (7.7); unique_counts 13.6 at the batch
+// step's shape on random reads and 14.1 on tiled errored reads (86 % and
+// 83 % of its 11.7 us bound; 14.4 and 22.8 with one search from every run
+// start) and 2.8 at a serial region's (3.0); revcomp_kmers' both-strand
+// form 2.9-3.0 at the batch step's shape (its bound 0.94) and 2.5 at a
+// serial region's (the reverse complement, then a torch.cat: two launches,
+// 6.1 and 4.9).
 
 #include <climits>
 #include <cstdint>
@@ -99,7 +120,6 @@
 namespace {
 
 constexpr int64_t SENT = 0xFFFFFFFFLL;
-constexpr int THREADS = 256;
 constexpr int MAX_K = 15;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
@@ -111,12 +131,16 @@ constexpr int KMER_V = 8;
 constexpr int SUB_THREADS = 128;  // 4 warps for the 4 range searches
 constexpr int SUB_V = 8;
 constexpr int SMALL_V = 2;
+// revcomp_kmers_kernel<RC_THREADS, RC_V or SMALL_V, ...> and
+// unique_counts_kernel<UC_THREADS, UC_V, ...> or <UC_SMALL_THREADS, SMALL_V>,
+// the latter where the former would leave an SM idle
+constexpr int RC_THREADS = 256;
+constexpr int RC_V = 8;
+constexpr int UC_THREADS = 256;
+constexpr int UC_V = 8;
+constexpr int UC_SMALL_THREADS = 128;
 constexpr int PROBES = 1;            // probes a lane a round of the range search
 constexpr int CHUNK_PER_THREAD = 8;  // table entries staged a thread at a time
-
-__device__ __forceinline__ int64_t element() {
-  return (int64_t)blockIdx.x * THREADS + threadIdx.x;
-}
 
 __device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t lmax(int64_t a, int64_t b) { return a < b ? b : a; }
@@ -340,56 +364,209 @@ kmer_codes_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict__ 
   }
 }
 
-// out = the reverse complement over k bases; SENTINEL stays SENTINEL.
-// The input's two-bit groups leave by an arithmetic shift, as torch's >>.
-__global__ void __launch_bounds__(THREADS)
-revcomp_kmers_kernel(const int64_t* __restrict__ x, int64_t n, int k,
-                     int64_t* __restrict__ out) {
-  const int64_t e = element();
-  if (e >= n) return;
-  const int64_t v = x[e];
-  int64_t c = v;
-  uint64_t o = 0;
-  for (int j = 0; j < k; ++j) {
-    o = (o << 2) | (uint64_t)(3 - (c & 3));
-    c >>= 2;
-  }
-  out[e] = v == SENT ? SENT : (int64_t)o;
+// The reverse complement of v's low 2k bits (1 <= k <= 15); SENTINEL stays
+// SENTINEL. Reversing the 64 bits reverses the order of the two-bit groups
+// and the two bits within each; swapping neighbouring bits puts the latter
+// back; a group's complement 3 - g is g ^ 3; the input's low 2k bits are
+// then the top 2k. The plain version's k steps, (o << 2) | (3 - (c & 3))
+// and c >>= 2, read the same bits, so any int64 gives the same code.
+__device__ __forceinline__ int64_t revcomp(int64_t v, int k) {
+  constexpr uint64_t ODD = 0x5555555555555555ull;
+  uint64_t y = __brevll((unsigned long long)v);
+  y = ((y >> 1) & ODD) | ((y & ODD) << 1);
+  return v == SENT ? SENT : (int64_t)(~y >> (64 - 2 * k));
 }
 
-// rows [rows, n], each sorted. At a run start i (a value that is not
-// SENTINEL and differs from the one before it): values = row[i], counts =
-// the run's length, is_start; elsewhere SENTINEL, 0, false.
-__global__ void __launch_bounds__(THREADS)
-unique_counts_kernel(const int64_t* __restrict__ s, int64_t rows, int64_t n,
+// x [rows, m] -> out [rows, m], the codes' reverse complements (BOTH
+// false), or out [rows, 2m], row g being x's row g and then its reverse
+// complements (BOTH true: the both-strand table, each code read once). THR
+// threads of V codes a block: block b is tile b % tiles of row b / tiles,
+// and thread t holds the code pairs t, t + THR, ... of its tile, so loads
+// and stores are coalesced. PAIRS: m is even and x and out are 16-byte
+// aligned, so a pair is one load and one store a half.
+template <int THR, int V, bool BOTH, bool PAIRS>
+__global__ void __launch_bounds__(THR)
+revcomp_kmers_kernel(const int64_t* __restrict__ x, int64_t m, unsigned tiles, int k,
+                     int64_t* __restrict__ out) {
+  constexpr int CPT = V / 2;
+  const unsigned g = blockIdx.x / tiles;  // (32 bits: the launch keeps rows * tiles < 2^31)
+  const int64_t i0 = (int64_t)(blockIdx.x - g * tiles) * (THR * V) + 2 * threadIdx.x;
+  const int64_t* xr = x + (int64_t)g * m;
+  int64_t* copy = out + (int64_t)g * (BOTH ? 2 * m : m);
+  int64_t* rc = BOTH ? copy + m : copy;
+  longlong2 a[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {  // every load in flight before a store
+    const int64_t i = i0 + 2 * j * THR;
+    if (PAIRS) {
+      a[j] = i < m ? *reinterpret_cast<const longlong2*>(xr + i) : make_longlong2(0, 0);
+    } else {
+      a[j].x = i < m ? xr[i] : 0;
+      a[j].y = i + 1 < m ? xr[i + 1] : 0;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int64_t i = i0 + 2 * j * THR;
+    const longlong2 r = make_longlong2(revcomp(a[j].x, k), revcomp(a[j].y, k));
+    if (PAIRS) {
+      if (i < m) {
+        if (BOTH) *reinterpret_cast<longlong2*>(copy + i) = a[j];
+        *reinterpret_cast<longlong2*>(rc + i) = r;
+      }
+    } else {
+      if (i < m) {
+        if (BOTH) copy[i] = a[j].x;
+        rc[i] = r.x;
+      }
+      if (i + 1 < m) {
+        if (BOTH) copy[i + 1] = a[j].y;
+        rc[i + 1] = r.y;
+      }
+    }
+  }
+}
+
+// The first index past `last` in the sorted row[0 .. n) whose value is not
+// v = row[last], or n (n < 2^31), by one whole warp. Lane l probes last +
+// 2^l (x: the value there, which the caller loads with its tile, before v
+// is known; anything past the row), and the first lane f whose probe
+// differs from v or lies past the row brackets the answer in (last +
+// 2^(f-1), last + 2^f]. Each further round spreads 32 probes over the open
+// gap and keeps the part between the last probe that holds v and the first
+// that does not, about a 32nd of it: a run that goes r slots past `last`
+// costs 1 + ceil(log2(r) / 5) rounds of loads, the first taken with the
+// tile. Every lane returns it. On a row that is not sorted the result is
+// some index in (last, n], and every load lies in the row.
+__device__ __forceinline__ int64_t run_end(const int64_t* __restrict__ row, int64_t n,
+                                           int64_t last, int64_t v, int64_t x) {
+  const int lane = threadIdx.x & 31;
+  // nonzero: lane 31's probe, last + 2^31, lies past the row
+  const unsigned out = __ballot_sync(FULL, last + (1LL << lane) >= n || x != v);
+  const int f = __ffs(out) - 1;
+  int64_t lo = f ? last + (1LL << (f - 1)) : last;  // row[lo] == v
+  int64_t hi = lmin(last + (1LL << f), n);          // row[hi] != v, or hi == n
+  while (hi - lo > 1) {
+    const int64_t d = hi - lo - 1;  // the open indices lo + 1 .. hi - 1
+    const unsigned differ = __ballot_sync(FULL, row[lo + 1 + ((d * lane) >> 5)] != v);
+    if (differ) {
+      const int j = __ffs(differ) - 1;
+      const int64_t h = lo + 1 + ((d * j) >> 5);
+      if (j) lo = lo + 1 + ((d * (j - 1)) >> 5);
+      hi = h;
+    } else {
+      lo += 1 + ((d * 31) >> 5);
+    }
+  }
+  return hi;
+}
+
+// Rows [rows, n], each sorted, SENTINEL (the greatest value) last. At a run
+// start i (a value that is not SENTINEL and differs from the one before
+// it): values = row[i], counts = the run's length, is_start; elsewhere
+// SENTINEL, 0, false. A run ends at the next boundary after its start: an
+// index whose value differs from the one before it, or n. THR threads of V
+// slots a block: block b is tile b % tiles of row b / tiles, and thread t
+// holds the slot pairs t, t + THR, ... of its tile (coalesced loads and
+// stores), so the tile is V / 2 segments of 2 THR slots, segment j held by
+// pair j of every thread. The next boundary after a thread's pair is a
+// reverse min-scan of the tile's boundaries: the first later lane of its
+// warp with one (a ballot), else the first in a later warp of the segment,
+// else in a later segment (each warp's first a segment in shared memory),
+// else the end of the run that holds the tile's last slot, which the last
+// warp finds past the tile by run_end. PAIRS: n is even, s and values are
+// 16-byte aligned, counts 8-byte and is_start 2-byte aligned, so a pair is
+// one load and one store an output.
+template <int THR, int V, bool PAIRS>
+__global__ void __launch_bounds__(THR)
+unique_counts_kernel(const int64_t* __restrict__ s, int64_t n, unsigned tiles,
                      int64_t* __restrict__ values, int32_t* __restrict__ counts,
                      uint8_t* __restrict__ is_start) {
-  const int64_t e = element();
-  if (e >= rows * n) return;
-  const int64_t i = e % n;
-  const int64_t* row = s + (e - i);
-  const int64_t v = row[i];
-  const bool start = v != SENT && (i == 0 || row[i - 1] != v);
-  int32_t count = 0;
-  if (start) {
-    // row[lo] == v; hi == n or row[hi] != v (the row is sorted, so every
-    // index past i holding v lies below the first that does not)
-    int64_t lo = i, hi = i + 1;
-    for (int64_t step = 2; hi < n && row[hi] == v; step <<= 1) {
-      lo = hi;
-      hi = i + step;
+  constexpr int CPT = V / 2, WARPS = THR / 32;
+  constexpr int NONE = INT_MAX;             // no boundary (n <= INT_MAX is one)
+  __shared__ int first[CPT][WARPS];         // a warp's first boundary in segment j, or NONE
+  __shared__ int64_t tail;                  // where the run of the tile's last slot ends
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const unsigned g = blockIdx.x / tiles;  // (32 bits: the launch keeps rows * tiles < 2^31)
+  const int64_t i0 = (int64_t)(blockIdx.x - g * tiles) * (THR * V);
+  const int64_t* row = s + (int64_t)g * n;
+  const int64_t last = i0 + THR * V - 1;  // the tile's last slot
+  const bool searcher = warp == WARPS - 1 && last + 1 < n;  // (a whole warp)
+  const int64_t probe_at = last + (1LL << lane);
+  const int64_t probe = searcher && probe_at < n ? row[probe_at] : 0;
+
+  longlong2 a[CPT];
+  int64_t before[CPT];  // lane 0: the slot before its pair (SENTINEL before the row)
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int64_t i = i0 + 2 * (j * THR + t);
+    if (PAIRS) {
+      a[j] = i < n ? *reinterpret_cast<const longlong2*>(row + i) : make_longlong2(SENT, SENT);
+    } else {
+      a[j].x = i < n ? row[i] : SENT;
+      a[j].y = i + 1 < n ? row[i + 1] : SENT;
     }
-    hi = hi < n ? hi : n;
-    while (hi - lo > 1) {
-      const int64_t mid = lo + (hi - lo) / 2;
-      if (row[mid] == v) lo = mid;
-      else hi = mid;
-    }
-    count = (int32_t)(hi - i);
+    before[j] = lane == 0 && i > 0 && i < n ? row[i - 1] : SENT;
   }
-  values[e] = start ? v : SENT;
-  counts[e] = count;
-  is_start[e] = start;
+
+  int nb[CPT];  // the first boundary after the pair among the later lanes of its warp
+  bool cut[CPT], st0[CPT], st1[CPT];  // a boundary at i + 1; run starts at i, i + 1
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int64_t i = i0 + 2 * (j * THR + t);
+    const int64_t up = __shfl_up_sync(FULL, a[j].y, 1);
+    const int64_t prev = lane ? up : before[j];
+    const bool in0 = i < n, in1 = i + 1 < n;
+    const bool c0 = !in0 || a[j].x != prev;
+    cut[j] = !in1 || a[j].y != a[j].x;
+    st0[j] = in0 && a[j].x != SENT && a[j].x != prev;
+    st1[j] = in1 && a[j].y != SENT && cut[j];
+    const int fb = c0 ? (int)lmin(i, n) : cut[j] ? (int)lmin(i + 1, n) : NONE;
+    const unsigned has = __ballot_sync(FULL, fb != NONE);
+    const unsigned later = has & ((FULL << lane) << 1);
+    const int next = __shfl_sync(FULL, fb, later ? __ffs(later) - 1 : lane);
+    const int head = __shfl_sync(FULL, fb, has ? __ffs(has) - 1 : 0);
+    nb[j] = later ? next : NONE;
+    if (lane == 0) first[j][warp] = has ? head : NONE;
+  }
+  if (warp == WARPS - 1) {
+    int64_t end = n;  // the row's last tile: its runs end in it or at n
+    if (searcher) {
+      const int64_t v = __shfl_sync(FULL, a[CPT - 1].y, 31);
+      end = v == SENT ? last + 1 : run_end(row, n, last, v, probe);  // (SENTINEL starts no run)
+    }
+    if (lane == 0) tail = end;
+  }
+  __syncthreads();
+
+  int64_t carry = tail;  // the first boundary past segment j (the tile's later segments)
+#pragma unroll
+  for (int j = CPT - 1; j >= 0; --j) {
+    int later = nb[j], all = NONE;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int f = first[j][w];
+      all = min(all, f);
+      if (w > warp) later = min(later, f);
+    }
+    const int64_t after = lmin(later, carry);  // the first boundary past the pair
+    carry = lmin(carry, all);
+    const int64_t i = i0 + 2 * (j * THR + t);
+    const int32_t c0 = st0[j] ? (int32_t)((cut[j] ? i + 1 : after) - i) : 0;
+    const int32_t c1 = st1[j] ? (int32_t)(after - i - 1) : 0;
+    const int64_t v0 = st0[j] ? a[j].x : SENT, v1 = st1[j] ? a[j].y : SENT;
+    const int64_t e = (int64_t)g * n + i;
+    if (PAIRS) {
+      if (i < n) {
+        *reinterpret_cast<longlong2*>(values + e) = make_longlong2(v0, v1);
+        *reinterpret_cast<int2*>(counts + e) = make_int2(c0, c1);
+        *reinterpret_cast<uint16_t*>(is_start + e) = (uint16_t)(st0[j] | st1[j] << 8);
+      }
+    } else {
+      if (i < n) values[e] = v0, counts[e] = c0, is_start[e] = st0[j];
+      if (i + 1 < n) values[e + 1] = v1, counts[e + 1] = c1, is_start[e + 1] = st1[j];
+    }
+  }
 }
 
 // lower_bound (upper false: the first index with t[i] >= v) or
@@ -652,6 +829,39 @@ int subtract_sorted_run(const void* values, const void* counts, const void* ref,
   return (int)cudaGetLastError();
 }
 
+template <int THR, int V>
+int revcomp_kmers_run(const void* x, long long m, long long tiles, int k, bool both, void* out,
+                      unsigned blocks, void* stream) {
+  const bool pairs = m % 2 == 0 && aligned(x, 16) && aligned(out, 16);
+  auto kernel = both ? (pairs ? revcomp_kmers_kernel<THR, V, true, true>
+                              : revcomp_kmers_kernel<THR, V, true, false>)
+                     : (pairs ? revcomp_kmers_kernel<THR, V, false, true>
+                              : revcomp_kmers_kernel<THR, V, false, false>);
+  kernel<<<blocks, THR, 0, (cudaStream_t)stream>>>((const int64_t*)x, m, (unsigned)tiles, k,
+                                                   (int64_t*)out);
+  return (int)cudaGetLastError();
+}
+
+template <int THR, int V>
+int unique_counts_run(const void* s, long long n, long long tiles, void* values, void* counts,
+                      void* is_start, unsigned blocks, void* stream) {
+  const bool pairs = n % 2 == 0 && aligned(s, 16) && aligned(values, 16) &&
+                     aligned(counts, 8) && aligned(is_start, 2);
+  auto kernel = pairs ? unique_counts_kernel<THR, V, true> : unique_counts_kernel<THR, V, false>;
+  kernel<<<blocks, THR, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)s, n, (unsigned)tiles, (int64_t*)values, (int32_t*)counts,
+      (uint8_t*)is_start);
+  return (int)cudaGetLastError();
+}
+
+// The tiles of a row of n slots at `per_tile` slots a tile and the grid of
+// rows * tiles blocks (false where that does not fit a grid).
+bool row_tiles(long long rows, long long n, long long per_tile, long long* tiles,
+               unsigned* blocks) {
+  *tiles = (n + per_tile - 1) / per_tile;
+  return rows >= 1 && n >= 1 && *tiles <= INT_MAX / rows && grid(rows * *tiles, 1, blocks);
+}
+
 }  // namespace
 
 // Each entry point launches one kernel on ``stream`` and returns the
@@ -675,24 +885,36 @@ int kmer_codes_launch(const void* codes, const void* lengths, long long R, int L
   return kmer_codes_run<SMALL_V>(codes, lengths, R, L, k, kmers, valid, blocks, stream);
 }
 
-// x [n] -> out [n]; 1 <= k <= 15.
-int revcomp_kmers_launch(const void* x, long long n, int k, void* out, void* stream) {
+// x [rows, m] -> out [rows, m] of reverse complements (both 0), or out
+// [rows, 2m], each row's codes and then their reverse complements (both
+// 1); 1 <= k <= 15.
+int revcomp_kmers_launch(const void* x, long long rows, long long m, int k, int both, void* out,
+                         void* stream) {
+  long long tiles;
   unsigned blocks;
-  if (k < 1 || k > MAX_K || !grid(n, THREADS, &blocks)) return (int)cudaErrorInvalidValue;
-  revcomp_kmers_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)x, n, k, (int64_t*)out);
-  return (int)cudaGetLastError();
+  if (k < 1 || k > MAX_K || !row_tiles(rows, m, RC_THREADS * RC_V, &tiles, &blocks))
+    return (int)cudaErrorInvalidValue;
+  if ((int)blocks >= sm_count())
+    return revcomp_kmers_run<RC_THREADS, RC_V>(x, m, tiles, k, both, out, blocks, stream);
+  if (!row_tiles(rows, m, RC_THREADS * SMALL_V, &tiles, &blocks))
+    return (int)cudaErrorInvalidValue;
+  return revcomp_kmers_run<RC_THREADS, SMALL_V>(x, m, tiles, k, both, out, blocks, stream);
 }
 
 // s [rows, n] -> values, counts, is_start [rows, n]; n < 2^31.
 int unique_counts_sorted_launch(const void* s, long long rows, long long n, void* values,
                                 void* counts, void* is_start, void* stream) {
+  long long tiles;
   unsigned blocks;
-  if (n < 1 || n > INT_MAX || !grid(rows * n, THREADS, &blocks))
+  if (n > INT_MAX || !row_tiles(rows, n, UC_THREADS * UC_V, &tiles, &blocks))
     return (int)cudaErrorInvalidValue;
-  unique_counts_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)s, rows, n, (int64_t*)values, (int32_t*)counts, (uint8_t*)is_start);
-  return (int)cudaGetLastError();
+  if ((int)blocks >= sm_count())
+    return unique_counts_run<UC_THREADS, UC_V>(s, n, tiles, values, counts, is_start, blocks,
+                                               stream);
+  if (!row_tiles(rows, n, UC_SMALL_THREADS * SMALL_V, &tiles, &blocks))
+    return (int)cudaErrorInvalidValue;
+  return unique_counts_run<UC_SMALL_THREADS, SMALL_V>(s, n, tiles, values, counts, is_start,
+                                                      blocks, stream);
 }
 
 // values, counts [rows, n], ref [rows, m_ref], normal [rows, m_normal] or

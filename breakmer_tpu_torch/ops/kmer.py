@@ -13,7 +13,10 @@ and ``subtract_sorted`` dispatch by device: a CUDA tensor goes to the
 function's hand-written kernel (``ops/kmer_cuda.py``, ``csrc/kmer.cu``:
 one launch a call), which launches or raises; a CPU tensor goes to its
 plain torch version (``*_plain``, the JAX body op for op), and any other
-device raises. ``member_sorted`` is the plain half of ``subtract_sorted``;
+device raises. ``both_strands`` is the JAX package's both-strand table
+expression, ``concatenate([x, revcomp_kmers(x, k)])``, which XLA runs as
+one program: on the card one launch of the ``revcomp_kmers`` kernel.
+``member_sorted`` is the plain half of ``subtract_sorted``;
 ``sort_kmers`` and the reference table's sort stay ``torch.sort``, as the
 JAX package leaves its sorts to XLA's.
 
@@ -116,6 +119,12 @@ def revcomp_kmers_plain(codes: torch.Tensor, k: int) -> torch.Tensor:
     return out.masked_fill(codes == _SENT, _SENT)
 
 
+def both_strands_plain(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """Codes [..., M] -> [..., 2M]: each row's codes, then their reverse
+    complements (SENTINEL stays SENTINEL)."""
+    return torch.cat([codes, revcomp_kmers_plain(codes, k)], dim=-1)
+
+
 def sort_kmers(kmers: torch.Tensor, start_dim: int = 0) -> torch.Tensor:
     """Flatten and sort kmer codes; SENTINEL (invalid) slots sort last.
     ``start_dim=1`` keeps the leading (region) dim: [G, ...] -> [G, N],
@@ -208,6 +217,11 @@ def revcomp_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
         codes, k)
 
 
+def both_strands(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`both_strands_plain`'s contract, dispatched by device."""
+    return _pick("both_strands", codes, kmer_cuda.both_strands, both_strands_plain)(codes, k)
+
+
 def unique_counts_sorted(sorted_kmers: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`unique_counts_sorted_plain`'s contract, dispatched by device."""
@@ -265,8 +279,7 @@ def sample_only_kmers(
                          _to_dev([ref.shape[1]], np.int32, device), k)
     # both strands: a sample read may come from either strand, so a k-mer
     # and its reverse complement both count as reference-present
-    r_km = r_km.reshape(-1)
-    ref_table = torch.sort(torch.cat([r_km, revcomp_kmers(r_km, k)])).values
+    ref_table = torch.sort(both_strands(r_km.reshape(-1), k)).values
 
     normal_table = None
     if normal_codes is not None:

@@ -2,7 +2,10 @@
 (``csrc/kmer.cu``): ``kmer_codes``, ``revcomp_kmers``,
 ``unique_counts_sorted`` and ``subtract_sorted`` of ``ops/kmer.py`` on
 CUDA tensors, one launch a call, as XLA runs each of the jitted functions
-of ``breakmer_tpu/ops/kmer.py`` as one program.
+of ``breakmer_tpu/ops/kmer.py`` as one program. ``both_strands`` is the
+``revcomp_kmers`` kernel's both-strand form (a row's codes, then their
+reverse complements: the JAX step's ``concatenate`` of the two, which XLA
+fuses into one program) and counts as a launch of that kernel.
 
 The kernel library is built and loaded on the first launch, never at
 import, so this module imports on a machine without ``nvcc`` or a card.
@@ -95,7 +98,24 @@ def revcomp_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
     n = codes.numel()
     if n:
         _launch("revcomp_kmers", codes.get_device(), lambda: f"revcomp_kmers (n={n}, k={k})",
-                codes.data_ptr(), n, k, out.data_ptr())
+                codes.data_ptr(), 1, n, k, 0, out.data_ptr())
+    return out
+
+
+def both_strands(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """``ops.kmer.both_strands`` on the card: int64 codes [..., M] ->
+    [..., 2M], each row's codes and then their reverse complements, in one
+    launch of the ``revcomp_kmers`` kernel."""
+    _on_one_card("both_strands", codes)
+    _dtype("both_strands", codes, torch.int64, "codes")
+    _check_k("both_strands", k)
+    rows, m = _rows("both_strands", codes)
+    codes = codes.contiguous()
+    out = torch.empty((*codes.shape[:-1], 2 * m), dtype=torch.int64, device=codes.device)
+    if rows:
+        _launch("revcomp_kmers", codes.get_device(),
+                lambda: f"revcomp_kmers (both strands, rows={rows}, m={m}, k={k})",
+                codes.data_ptr(), rows, m, k, 1, out.data_ptr())
     return out
 
 

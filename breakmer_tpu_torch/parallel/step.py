@@ -11,7 +11,8 @@ step ``__graft_entry__.entry`` returns and ``bench.py`` times:
 The JAX step ``vmap``s ``_per_region_kmers`` over regions; here the
 region dim is written out: one call of each k-mer function over all G
 regions (row-wise sorts, and on a card one launch of each k-mer kernel,
-three of ``kmer_codes``; ``ops/kmer.py``). The
+three of ``kmer_codes``; the both-strand table is one launch of
+``revcomp_kmers``; ``ops/kmer.py``). The
 SW half is one ``sw_score_auto`` call over all G·B pairs, reshaped back
 to [G, B]: one kernel launch a step on the card. SW tie-breaks are per
 pair, so flattening changes no result. The k-mer values are int64 on the
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from breakmer_tpu_torch.ops.kmer import (
-    _SENT, kmer_codes, revcomp_kmers, sort_kmers, subtract_sorted,
+    _SENT, both_strands, kmer_codes, sort_kmers, subtract_sorted,
     unique_counts_sorted,
 )
 from breakmer_tpu_torch.ops.sw import SWParams, sw_score_auto
@@ -58,7 +59,7 @@ def _per_region_kmers(reads, lengths, refs, ref_lengths,
     km, _ = kmer_codes(reads.reshape(G * R, L), lengths.reshape(G * R), k)
     values, counts, _ = unique_counts_sorted(sort_kmers(km.reshape(G, -1), 1))
     rkm, _ = kmer_codes(refs, ref_lengths, k)
-    table = torch.sort(torch.cat([rkm, revcomp_kmers(rkm, k)], dim=-1), dim=-1).values
+    table = torch.sort(both_strands(rkm, k), dim=-1).values
     normal_table = None
     if normal_reads is not None:
         Rn, Ln = normal_reads.shape[1:]

@@ -14,11 +14,15 @@ phase's wall time is printed):
      bound and the share of it the kernel reaches;
   4. the k-mer engine on the card against the CPU (2,000 x 150 bp reads,
      3 kb region, matched normal); then each of the four k-mer kernels
-     (csrc/kmer.cu) against its plain version, exact, at a serial
-     region's shapes and the batch step's, with its device time (queued
-     calls), a call's time, the plain version's, the bound and one torch
-     call's where one computes the same function; and the CUDA kernels
-     one sample_only_kmers call runs (profiler);
+     (csrc/kmer.cu) and the both-strand form of revcomp_kmers against its
+     plain version, exact, at a serial region's shapes and the batch
+     step's (unique_counts_sorted on tiled errored reads and on random
+     reads), with its device time (queued calls), a call's time, the
+     plain version's, the bound and one torch call's where one computes
+     the same function; each at its designs' span and tile edges; and the
+     CUDA kernels one sample_only_kmers call runs (profiler, in a fresh
+     process and in this one, each hand kernel's activities beside its
+     launches: the fresh process must see every launch);
   5. the serial slice on the card (python -m breakmer_tpu_torch.cli run,
      driven as the CLI drives it) on scenario seeds 1 and 7: every
      planted-SV checker must pass;
@@ -328,6 +332,8 @@ KMER_KERNELS = {  # name: the jitted JAX function (an XLA program, no Pallas ker
     "unique_counts_sorted": "breakmer_tpu/ops/kmer.py:121-122",
     "subtract_sorted": "breakmer_tpu/ops/kmer.py:162-163",
 }
+# a function that launches another's kernel: the counter its launches go to
+KMER_COUNTER = {"both_strands": "revcomp_kmers"}
 
 
 def kmer_kernel_inputs(rng, dev, G, sample, ref, normal):
@@ -367,7 +373,8 @@ def kmer_kernel_inputs(rng, dev, G, sample, ref, normal):
     if not G:
         table = table[0]
     return {"kmer_codes": (reads, lengths, 15), "revcomp_kmers": (rkm, 15),
-            "unique_counts_sorted": (srt,), "subtract_sorted": (values, counts, table, ntable)}
+            "both_strands": (rkm, 15), "unique_counts_sorted": (srt,),
+            "subtract_sorted": (values, counts, table, ntable)}
 
 
 def kmer_bound(args, out):
@@ -389,15 +396,56 @@ def kmer_library(name, args):
     return None
 
 
-def kmer_kernel_rows(dev, card):
-    """Each k-mer kernel against its plain version on the card, exact, at
-    the serial path's and the batch step's shapes, with its device time
-    (queued calls), a call's time (events), the plain version's, the
-    bound and the library call's; then the CUDA kernels one
-    sample_only_kmers call runs (profiler). Returns (kernel rows for
-    the table, keyed by name; the kernels a call)."""
+def kmer_kernel_row(name, args, label, card):
+    """One k-mer function's kernel against its plain version on the card,
+    exact, one launch; its device time (queued calls), a call's time
+    (events), the plain version's, the bound and the library call's."""
     from breakmer_tpu_torch.ops import kmer, kmer_cuda
     from breakmer_tpu_torch.timing import cuda_ms, queued_ms
+
+    kernel, plain = getattr(kmer, name), getattr(kmer, f"{name}_plain")
+    counter = KMER_COUNTER.get(name, name)
+    before = kmer_cuda.LAUNCHES[counter]
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    check(kmer_cuda.LAUNCHES[counter] == before + 1, f"{name}: not one launch of its kernel")
+    got = got if isinstance(got, tuple) else (got,)
+    want = plain(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(want, got)),
+          f"{name} ({label}): kernel != plain")
+    lib = kmer_library(name, args)
+    r = dict(shape=[list(a.shape) for a in args if isinstance(a, torch.Tensor)],
+             max_abs_err=0, ms=cuda_ms(lambda: kernel(*args)),
+             device_ms=queued_ms(lambda: kernel(*args)),
+             plain_ms=cuda_ms(lambda: plain(*args)),
+             plain_device_ms=queued_ms(lambda: plain(*args)),
+             library_ms=None if lib is None else cuda_ms(lib),
+             library_device_ms=None if lib is None else queued_ms(lib),
+             bound=kmer_bound(args, got))
+    r["bound_share"] = r["bound"][0] / r["device_ms"]
+    lib_txt = "none" if lib is None else (
+        f"{r['library_ms']:.4f} ({r['library_device_ms']:.4f} device)")
+    print(f"  {name} {label} {r['shape']}: kernel == plain; device "
+          f"{r['device_ms']:.4f} ms (queued), a call {r['ms']:.4f} ms; plain "
+          f"{r['plain_ms']:.4f} ({r['plain_device_ms']:.4f} device); bound "
+          f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), {100 * r['bound_share']:.1f} % of "
+          f"the device time; library {lib_txt} ms [{card}]", flush=True)
+    return r
+
+
+def kmer_kernel_rows(dev, card):
+    """Each k-mer kernel against its plain version on the card, exact, at
+    the serial path's and the batch step's shapes, as ``kmer_kernel_row``
+    holds and times it: the four functions, the both-strand form of
+    ``revcomp_kmers`` (the main path's form of that kernel: its row, with
+    the function alone beside it) and, at the batch step's shape,
+    ``unique_counts_sorted`` on random reads too (tools/kmer_time.py's);
+    then the design edges (``kmer_edges``) and the CUDA kernels one
+    sample_only_kmers call runs (``kmer_call_count``). Returns (kernel
+    rows for the table, keyed by kernel name; the kernels a call)."""
+    from breakmer_tpu_torch.ops import kmer
+    from breakmer_tpu_torch.timing import queued_ms
     from breakmer_tpu_torch.tools import kmer_time
 
     rng = np.random.default_rng(9)
@@ -406,25 +454,7 @@ def kmer_kernel_rows(dev, card):
     rows = {}
     for form, inputs in forms.items():
         for name, args in inputs.items():
-            kernel, plain = getattr(kmer, name), getattr(kmer, f"{name}_plain")
-            before = kmer_cuda.LAUNCHES[name]
-            got = kernel(*args)
-            torch.cuda.synchronize()
-            check(kmer_cuda.LAUNCHES[name] == before + 1, f"{name}: no launch of its kernel")
-            got = got if isinstance(got, tuple) else (got,)
-            want = plain(*args)
-            want = want if isinstance(want, tuple) else (want,)
-            check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(want, got)),
-                  f"{name} ({form}): kernel != plain")
-            lib = kmer_library(name, args)
-            r = dict(shape=[list(a.shape) for a in args if isinstance(a, torch.Tensor)],
-                     max_abs_err=0, ms=cuda_ms(lambda: kernel(*args)),
-                     device_ms=queued_ms(lambda: kernel(*args)),
-                     plain_ms=cuda_ms(lambda: plain(*args)),
-                     plain_device_ms=queued_ms(lambda: plain(*args)),
-                     library_ms=None if lib is None else cuda_ms(lib),
-                     library_device_ms=None if lib is None else queued_ms(lib),
-                     bound=kmer_bound(args, got))
+            r = kmer_kernel_row(name, args, form, card)
             if name == "kmer_codes" and form == "serial":  # a contig window too
                 row = args[0][:1, :KMER_CONTIG].contiguous()
                 one = torch.tensor([KMER_CONTIG], dtype=torch.int32, device=dev)
@@ -432,35 +462,65 @@ def kmer_kernel_rows(dev, card):
                     kmer.kmer_codes_plain(row, one, 15), kmer.kmer_codes(row, one, 15))),
                     "kmer_codes (contig window): kernel != plain")
                 r["contig_device_ms"] = queued_ms(lambda: kmer.kmer_codes(row, one, 15))
-            lib_txt = "none" if lib is None else (
-                f"{r['library_ms']:.4f} ({r['library_device_ms']:.4f} device)")
-            r["bound_share"] = r["bound"][0] / r["device_ms"]
-            print(f"  {name} {form} {r['shape']}: kernel == plain; device "
-                  f"{r['device_ms']:.4f} ms (queued), a call {r['ms']:.4f} ms; plain "
-                  f"{r['plain_ms']:.4f} ({r['plain_device_ms']:.4f} device); bound "
-                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), {100 * r['bound_share']:.1f} % of "
-                  f"the device time; library {lib_txt} ms [{card}]", flush=True)
             if form == "serial":
                 rows[name] = r
             else:
                 rows[name]["batch_step"] = {k: v for k, v in r.items() if k != "max_abs_err"}
+    srt = kmer_time.inputs(rng, **kmer_time.BATCH)["unique_counts_sorted"]
+    r = kmer_kernel_row("unique_counts_sorted", srt, "batch, random reads", card)
+    rows["unique_counts_sorted"]["batch_step"]["random_reads"] = {
+        k: r[k] for k in ("device_ms", "ms", "bound", "bound_share")}
+    alone = rows.pop("revcomp_kmers")
+    rows["revcomp_kmers"] = dict(rows.pop("both_strands"), form="both_strands", alone=alone)
     kmer_edges(dev, card)
-    call = kmer_time.call_profile(rng, reps=5)
-    print(f"  sample_only_kmers {kmer_time.SERIAL}: {call['kernels']} CUDA kernels and "
-          f"{call['copies']} copies a call (profiler), {call['device_ms']:.4f} ms of device "
-          f"time, {call['wall_ms']:.4f} ms a call [{card}]", flush=True)
-    return rows, {k: call[k] for k in ("kernels", "copies", "device_ms", "wall_ms")}
+    return rows, kmer_call_count(card)
+
+
+def kmer_call_count(card):
+    """The CUDA kernels of one serial region's sample_only_kmers call, read
+    by tools/kmer_time.call_profile in a fresh process (``--call``) and in
+    this one: the profiler's activities and, per hand kernel, those under
+    its symbol beside its wrapper's launches in that call. Fails unless
+    the fresh process's profiler saw every hand-kernel launch and no
+    other. Returns the fresh reading."""
+    import subprocess
+
+    from breakmer_tpu_torch.tools import kmer_time
+
+    proc = subprocess.run([sys.executable, "-m", "breakmer_tpu_torch.tools.kmer_time",
+                           "--call", "--reps", "5"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, f"kmer_time --call failed: {proc.stderr[-2000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])["sample_only_kmers"]
+    here = kmer_time.call_profile(np.random.default_rng(0), reps=5)
+    for label, call in (("a fresh process", fresh), ("this process", here)):
+        seen, launched = call["hand_kernels_seen"], call["hand_kernels_launched"]
+        print(f"  sample_only_kmers {kmer_time.SERIAL}, profiled in {label}: "
+              f"{call['kernels']} CUDA kernels and {call['copies']} copies a call, "
+              f"{call['device_ms']:.4f} ms of device time, {call['wall_ms']:.4f} ms a call; "
+              f"hand kernels seen {seen}, launched {launched} [{card}]", flush=True)
+    check(fresh["hand_kernels_seen"] == fresh["hand_kernels_launched"],
+          "sample_only_kmers: the profiler's hand kernels in a fresh process "
+          f"{fresh['hand_kernels_seen']} != their launches {fresh['hand_kernels_launched']}")
+    keys = ("kernels", "copies", "device_ms", "wall_ms", "hand_kernels_seen",
+            "hand_kernels_launched")
+    return {**{k: fresh[k] for k in keys}, "this_process": {k: here[k] for k in keys}}
 
 
 def kmer_edges(dev, card):
-    """kmer_codes and subtract_sorted, whose kernels stage their inputs in
-    shared memory by spans and tiles, exact against their plain versions
-    at those designs' edges, one launch a call: spans that cross rows and
-    end ragged, k = 1, L < 16, a row of 5,000 bases, poly-A rows, negative
-    bytes (at the batch step's size too), codes off a 16-byte line;
-    queries in any order, a table range wider than one staged chunk,
-    tiles of SENTINEL alone, an odd row width, rows off a 16-byte line,
-    values past 32 bits."""
+    """The k-mer kernels that tile their rows, exact against their plain
+    versions at those designs' edges, one launch a call: for kmer_codes
+    spans that cross rows and end ragged, k = 1, L < 16, a row of 5,000
+    bases, poly-A rows, negative bytes (at the batch step's size too),
+    codes off a 16-byte line; for subtract_sorted queries in any order, a
+    table range wider than one staged chunk, tiles of SENTINEL alone, an
+    odd row width, rows off a 16-byte line, values past 32 bits; for
+    unique_counts_sorted runs that cross one tile and many, poly-A rows,
+    all-SENTINEL rows, n = 1, a ragged last tile, the SENTINEL boundary
+    inside a tile, an odd n, rows off a 16-byte line, runs of every
+    length, at both of the launch's tile sizes; for both_strands (the
+    revcomp_kmers kernel) an odd width, rows off a 16-byte line, one code,
+    values of any int64, every k, at both of its tile sizes."""
     from breakmer_tpu_torch.ops import kmer, kmer_cuda
     from breakmer_tpu_torch.timing import queued_ms
 
@@ -482,11 +542,13 @@ def kmer_edges(dev, card):
         return on(x)
 
     def once(name, fn, plain, *args):
-        before = kmer_cuda.LAUNCHES[name]
+        counter = KMER_COUNTER.get(name, name)
+        before = kmer_cuda.LAUNCHES[counter]
         got = fn(*args)
         torch.cuda.synchronize()
-        check(kmer_cuda.LAUNCHES[name] == before + 1, f"{name} (edges): not one launch")
-        check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(plain(*args), got)),
+        check(kmer_cuda.LAUNCHES[counter] == before + 1, f"{name} (edges): not one launch")
+        got, want = ((x if isinstance(x, tuple) else (x,)) for x in (got, plain(*args)))
+        check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(want, got)),
               f"{name} (edges {[tuple(a.shape) for a in args if hasattr(a, 'shape')]}): "
               "kernel != plain")
 
@@ -521,9 +583,44 @@ def kmer_edges(dev, card):
     subtract_cases.append((wv, wc, wide[:, ::3].contiguous(), wide[:, 1::7].contiguous()))
     for args in subtract_cases:
         once("subtract_sorted", kmer.subtract_sorted, kmer.subtract_sorted_plain, *args)
-    print(f"  kmer_codes and subtract_sorted exact at their span and tile edges "
-          f"({len(codes_cases)} and {len(subtract_cases)} cases, one launch a call); "
-          f"kmer_codes on a row of 5,000 bases {row_ms:.4f} ms (queued) [{card}]", flush=True)
+
+    def runs_of_every_length(n):
+        return np.repeat(np.arange(300), np.arange(1, 301))[:n][None, :]
+
+    off_line = on(np.concatenate([[0], np.sort(rng.integers(0, 60, (2, 1000)), 1).ravel()]))
+    count_cases = [
+        on(np.zeros((1, 200 * 86), np.int64)),    # one run through every tile (2 slots a thread)
+        on(np.zeros((140, 5000), np.int64)),      # and at 8 slots a thread (>= 132 blocks)
+        sorted_rows(1, 20000, 5, 20000),          # runs across many tiles
+        sorted_rows(140, 2100, 3, 2100),
+        sorted_rows(32, 512 * 114, 2000, 55000),  # runs across one tile, the batch shape
+        on(np.full((3, 77), SENTINEL, np.int64)),
+        on(np.array([[42]])), on(np.array([[SENTINEL]])), on(np.array([[4], [SENTINEL], [9]])),
+        sorted_rows(3, 1550, 40, 1500),           # a ragged last tile
+        sorted_rows(2, 1024, 20, 300),            # SENTINEL from inside a tile
+        sorted_rows(5, 1333, 50, 1300),           # an odd n: slot by slot
+        off_line[1:].view(2, 1000),               # rows off the 16-byte line: slot by slot
+        on(runs_of_every_length(20000)), on(np.repeat(runs_of_every_length(4000), 140, 0)),
+    ]
+    for x in count_cases:
+        once("unique_counts_sorted", kmer.unique_counts_sorted, kmer.unique_counts_sorted_plain, x)
+    flat = on(np.concatenate([[0], rng.integers(0, 1 << 30, 2 * 600)]))
+    strand_cases = [(on(rng.integers(0, 1 << 30, (1, 1786))), 15),
+                    (on(rng.integers(0, 1 << 30, (32, 4082))), 15),
+                    (on(rng.integers(0, 1 << 30, (3, 1001))), 15),  # odd: code by code
+                    (flat[1:].view(2, 600), 5),                     # off the 16-byte line
+                    (on(np.array([SENTINEL])), 3),
+                    (on(rng.integers(-(1 << 62), 1 << 62, (200, 3000))), 11)]  # 8 codes a thread
+    wide = on(np.concatenate([rng.integers(-(1 << 62), 1 << 62, 500), [SENTINEL] * 10]))
+    strand_cases += [(wide, k) for k in range(1, 16)]
+    for x, k in strand_cases:
+        once("both_strands", kmer.both_strands, kmer.both_strands_plain, x, k)
+        once("revcomp_kmers", kmer.revcomp_kmers, kmer.revcomp_kmers_plain, x, k)
+    print(f"  kmer_codes, subtract_sorted, unique_counts_sorted, both_strands and revcomp_kmers "
+          f"exact at their span and tile edges ({len(codes_cases)}, {len(subtract_cases)}, "
+          f"{len(count_cases)}, {len(strand_cases)} and {len(strand_cases)} cases, one launch a "
+          f"call); kmer_codes on a row of 5,000 bases {row_ms:.4f} ms (queued) [{card}]",
+          flush=True)
 
 
 def phase_kmer(dev, card):
@@ -1739,7 +1836,7 @@ def main() -> int:
                                              "multihost_launches", "agreement_launches",
                                              "main_path_by_shape", "batched_path_by_shape",
                                              "contig_device_ms", "bound_share", "batch_step",
-                                             "sample_only_kmers_call")
+                                             "form", "alone", "sample_only_kmers_call")
                          if k in row}})
     print(card_line())
     print(json.dumps({"kernels": table}))

@@ -637,6 +637,32 @@ def test_revcomp_kernel_matches_plain(card, k):
                _launched("revcomp_kmers", lambda: kmer.revcomp_kmers(x, k)))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 11, 15])
+def test_both_strands_kernel_matches_plain(card, k):
+    """The both-strand form (one launch of the revcomp_kmers kernel)
+    against its plain version, torch.cat of the codes and their reverse
+    complements: a region's reference row and the batch step's [32, 4082],
+    at both tile sizes (2 codes a thread below 132 blocks, 8 at or above),
+    an odd width (code by code), rows off the 16-byte line, a strided view,
+    one code, and values of any int64."""
+    rng = np.random.default_rng(30 + k)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    codes, lengths = (torch.from_numpy(a).to(card) for a in _read_codes(rng, 32, 4096, k))
+    km = kmer.kmer_codes_plain(codes, lengths, k)[0]
+    flat = on(rng.integers(0, 1 << 30, 1201))
+    cases = [km[:1], km[0], km, km[:3, :1001], flat[1:].view(2, 600), km[::2, ::3],
+             on(np.array([_SENT])), on(rng.integers(-(1 << 62), 1 << 62, (200, 3000))),
+             on(rng.integers(0, 1 << 32, (7, 5)))]
+    for x in cases:
+        want = kmer.both_strands_plain(x, k)
+        _equal(want, _launched("revcomp_kmers", lambda: kmer.both_strands(x, k)))
+        assert want.shape == (*x.shape[:-1], 2 * x.shape[-1])
+
+
 def _sorted_rows(rng, G, N, hi, sent_from=None):
     x = np.sort(rng.integers(0, hi, (G, N)), axis=1)
     if sent_from is not None:
@@ -664,6 +690,55 @@ def test_unique_counts_kernel_matches_plain(card):
                    _launched("unique_counts_sorted", lambda: kmer.unique_counts_sorted(s)))
     v, c, _ = kmer.unique_counts_sorted(torch.zeros(200 * 86, dtype=torch.int64, device=card))
     assert int(c[0]) == 200 * 86 and int(c.sum()) == 200 * 86
+
+
+@pytest.mark.cuda
+def test_unique_counts_kernel_on_tile_edges(card):
+    """The tile scan's edges, exact against the plain version, one launch
+    a call, at both of the launch's tile sizes (2 slots a thread where 8
+    would leave an SM idle): runs that cross one tile and many (the last
+    warp's search past the tile), poly-A rows, all-SENTINEL rows, n = 1, a
+    ragged last tile, SENTINEL from inside a tile, an odd n and rows off
+    the 16-byte line (slot by slot), runs of every length, and the batch
+    step's shape on tiled errored reads."""
+    rng = np.random.default_rng(26)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(card)
+
+    every = np.repeat(np.arange(300), np.arange(1, 301))
+    G, R, L, LREF = 32, 512, 128, 4096
+    hap = rng.integers(0, 4, (G, LREF)).astype(np.int8)
+    starts = rng.integers(0, LREF - L + 1, (G, R))
+    reads = hap[np.arange(G)[:, None, None], starts[:, :, None] + np.arange(L)]
+    err = rng.random(reads.shape) < 0.01
+    reads[err] = rng.integers(0, 4, int(err.sum()))
+    km = kmer.kmer_codes_plain(torch.from_numpy(reads.reshape(G * R, L)).to(card),
+                               torch.full((G * R,), L, dtype=torch.int32, device=card), 15)[0]
+    tiled = torch.sort(km.reshape(G, -1), -1).values
+    off = on(np.concatenate([[0], np.sort(rng.integers(0, 60, (2, 1000)), 1).ravel()]))
+    cases = {
+        "poly_a_region": on(np.zeros(200 * 86)),
+        "poly_a_rows": on(np.zeros((140, 5000))),
+        "runs_across_many_tiles": on(_sorted_rows(rng, 1, 20000, 5)),
+        "runs_across_many_tiles_rows": on(_sorted_rows(rng, 140, 2100, 3)),
+        "runs_across_one_tile": on(_sorted_rows(rng, 140, 2100, 150, 2000)),
+        "all_sentinel_rows": on(np.full((3, 77), _SENT)),
+        "n_1": on(np.array([42])), "n_1_sentinel": on(np.array([_SENT])),
+        "n_1_rows": on(np.array([[4], [_SENT], [9]])),
+        "ragged_last_tile": on(_sorted_rows(rng, 3, 1550, 40, 1500)),
+        "sentinel_inside_a_tile": on(_sorted_rows(rng, 2, 1024, 20, 300)),
+        "odd_n": on(_sorted_rows(rng, 5, 1333, 50, 1300)),
+        "off_the_line": off[1:].view(2, 1000),
+        "runs_of_every_length": on(every[:20000]),
+        "runs_of_every_length_rows": on(np.repeat(every[None, :4000], 140, 0)),
+        "batch_tiled_reads": tiled,
+    }
+    for name, x in cases.items():
+        want = kmer.unique_counts_sorted_plain(x)
+        got = _launched("unique_counts_sorted", lambda: kmer.unique_counts_sorted(x))
+        _equal(want, got)
+        assert int(got[1].sum()) == int((x != _SENT).sum()), name
 
 
 @pytest.mark.cuda

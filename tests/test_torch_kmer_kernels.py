@@ -23,6 +23,8 @@ SENT = 0xFFFFFFFF
 
 # -- dispatch ---------------------------------------------------------------
 
+_FUNCTIONS = (*kmer_cuda.KERNELS, "both_strands")  # both_strands: the revcomp_kmers kernel
+
 def _calls(device, suffix=""):
     """Each of the four functions (``suffix="_plain"``: its plain version)
     with small inputs on ``device``."""
@@ -31,17 +33,18 @@ def _calls(device, suffix=""):
     lengths = torch.full((6,), 30, dtype=torch.int32).to(device)
     km = torch.sort(torch.from_numpy(rng.integers(0, 50, 40)).to(device)).values
     counts = torch.ones(40, dtype=torch.int32).to(device)
-    fn = {name: getattr(tk, name + suffix) for name in kmer_cuda.KERNELS}
+    fn = {name: getattr(tk, name + suffix) for name in _FUNCTIONS}
     return {
         "kmer_codes": lambda: fn["kmer_codes"](codes, lengths, 5),
         "revcomp_kmers": lambda: fn["revcomp_kmers"](km, 5),
+        "both_strands": lambda: fn["both_strands"](km.reshape(4, 10), 5),
         "unique_counts_sorted": lambda: fn["unique_counts_sorted"](km),
         "subtract_sorted": lambda: fn["subtract_sorted"](
             km, counts, km[::3].contiguous(), km[1::4].contiguous()),
     }
 
 
-@pytest.mark.parametrize("name", kmer_cuda.KERNELS)
+@pytest.mark.parametrize("name", _FUNCTIONS)
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing(name, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CPU tensor reached the kernel wrapper")
@@ -57,7 +60,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(name, monkeypatch
     assert kmer_cuda.LAUNCHES == before
 
 
-@pytest.mark.parametrize("name", kmer_cuda.KERNELS)
+@pytest.mark.parametrize("name", _FUNCTIONS)
 def test_other_devices_raise(name):
     with pytest.raises(ValueError, match="no implementation for device meta"):
         _calls("meta")[name]()
@@ -93,6 +96,12 @@ def test_kmer_codes_wrapper_refuses_what_the_plain_version_refuses(wrappers):
         kmer_cuda.kmer_codes(codes, lengths[:2], 5)
     with pytest.raises(ValueError, match="capacity"):
         kmer_cuda.revcomp_kmers(torch.zeros(4, dtype=torch.int64), 16)
+    with pytest.raises(ValueError, match="capacity"):
+        kmer_cuda.both_strands(torch.zeros(4, dtype=torch.int64), 16)
+    with pytest.raises(ValueError, match="k=0"):
+        kmer_cuda.both_strands(torch.zeros(4, dtype=torch.int64), 0)
+    with pytest.raises(ValueError, match="scalar"):
+        kmer_cuda.both_strands(torch.zeros((), dtype=torch.int64), 5)
     assert wrappers == []
 
 
@@ -102,6 +111,7 @@ def test_kmer_codes_wrapper_refuses_what_the_plain_version_refuses(wrappers):
     ("kmer_codes", lambda: kmer_cuda.kmer_codes(
         torch.zeros((2, 20), dtype=torch.int8), torch.zeros(2, dtype=torch.int64), 5)),
     ("revcomp_kmers", lambda: kmer_cuda.revcomp_kmers(torch.zeros(4, dtype=torch.int32), 5)),
+    ("both_strands", lambda: kmer_cuda.both_strands(torch.zeros(4, dtype=torch.int32), 5)),
     ("unique_counts_sorted", lambda: kmer_cuda.unique_counts_sorted(
         torch.zeros(4, dtype=torch.int32))),
     ("subtract_sorted", lambda: kmer_cuda.subtract_sorted(
@@ -134,6 +144,9 @@ def test_zero_size_inputs_give_empty_outputs_without_a_launch(wrappers):
                                      torch.zeros(0, dtype=torch.int32), 15)
     assert km.shape == valid.shape == (0, 26) and km.dtype == i64 and valid.dtype == torch.bool
     assert kmer_cuda.revcomp_kmers(torch.zeros((3, 0), dtype=i64), 15).shape == (3, 0)
+    for shape, want in (((3, 0), (3, 0)), ((0, 5), (0, 10)), ((0,), (0,))):
+        out = kmer_cuda.both_strands(torch.zeros(shape, dtype=i64), 15)
+        assert out.shape == want and out.dtype == i64
     for shape in ((0,), (4, 0), (0, 7)):
         out = kmer_cuda.unique_counts_sorted(torch.zeros(shape, dtype=i64))
         assert [o.shape for o in out] == [shape] * 3
@@ -155,6 +168,15 @@ def test_a_non_empty_input_reaches_the_launch(wrappers):
         kmer_cuda.subtract_sorted(v, torch.zeros(3, dtype=torch.int32),
                                   torch.zeros(2, dtype=torch.int64))
     assert wrappers == ["kmer_codes", "subtract_sorted"]
+
+
+def test_both_strands_launches_the_revcomp_kernel(wrappers):
+    """The both-strand form is a launch of the revcomp_kmers kernel (and
+    is counted as one), from a strided view made contiguous."""
+    codes = torch.zeros((6, 8), dtype=torch.int64)[::2]
+    with pytest.raises(RuntimeError, match="launch of revcomp_kmers reached"):
+        kmer_cuda.both_strands(codes, 15)
+    assert wrappers == ["revcomp_kmers"]
 
 
 @pytest.mark.parametrize("widths", [(0, None), (0, 4), (4, 0), (0, 0)])
@@ -179,7 +201,8 @@ def _cu_constants():
     text = (Path(kmer_cuda.__file__).resolve().parent.parent / "csrc" / "kmer.cu").read_text()
     return {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
             for name in ("KMER_THREADS", "KMER_V", "SUB_THREADS", "SUB_V", "SMALL_V", "PROBES",
-                         "CHUNK_PER_THREAD")}
+                         "CHUNK_PER_THREAD", "RC_THREADS", "RC_V", "UC_THREADS", "UC_V",
+                         "UC_SMALL_THREADS")}
 
 
 _CU = _cu_constants()
@@ -190,6 +213,17 @@ def _per_thread(elements: int, threads: int, v: int) -> int:
     """The launch's choice: v elements a thread, or SMALL_V where blocks of
     ``threads * v`` would leave an SM without one."""
     return v if -(-elements // (threads * v)) >= _SMS else _CU["SMALL_V"]
+
+
+def _row_tiling(rows: int, n: int, prefix: str):
+    """The tiling a row-tiled kernel's launch picks for rows [rows, n]:
+    (threads, slots a thread): <prefix>_THREADS x <prefix>_V where that
+    gives every SM a block, else <prefix>_SMALL_THREADS (where the source
+    has one, else <prefix>_THREADS) x SMALL_V."""
+    threads, v = _CU[f"{prefix}_THREADS"], _CU[f"{prefix}_V"]
+    if rows * -(-n // (threads * v)) >= _SMS:
+        return threads, v
+    return _CU.get(f"{prefix}_SMALL_THREADS", threads), _CU["SMALL_V"]
 
 
 def _kmer_codes_mirror(codes: np.ndarray, lengths: np.ndarray, k: int,
@@ -294,43 +328,158 @@ def _kmer_codes_mirror(codes: np.ndarray, lengths: np.ndarray, k: int,
     return km.reshape(R, W), ok.reshape(R, W)
 
 
+_M64 = [np.uint64(m) for m in (0x5555555555555555, 0x3333333333333333, 0x0F0F0F0F0F0F0F0F,
+                              0x00FF00FF00FF00FF, 0x0000FFFF0000FFFF, 0x00000000FFFFFFFF)]
+
+
+def _brev64(y: np.ndarray) -> np.ndarray:
+    """__brevll: bit i of each uint64 to bit 63 - i."""
+    for i, m in enumerate(_M64):
+        sh = np.uint64(1 << i)
+        y = ((y >> sh) & m) | ((y & m) << sh)
+    return y
+
+
 def _revcomp_mirror(x: np.ndarray, k: int) -> np.ndarray:
-    """revcomp_kmers_kernel per element: k steps of an arithmetic shift."""
-    c = x.astype(np.int64)
-    o = np.zeros(x.shape, dtype=np.uint64)
-    for _ in range(k):
-        o = (o << np.uint64(2)) | (3 - (c & 3)).astype(np.uint64)
-        c = c >> 2
-    return np.where(x == SENT, SENT, o.astype(np.int64))
+    """revcomp (csrc/kmer.cu) per code of any int64: the 64 bits reversed,
+    neighbouring bits swapped back, complemented, shifted right by 64 -
+    2k; SENTINEL kept."""
+    v = np.asarray(x, dtype=np.int64)
+    y = _brev64(v.astype(np.uint64))
+    y = ((y >> np.uint64(1)) & _M64[0]) | ((y & _M64[0]) << np.uint64(1))
+    y = ~y >> np.uint64(64 - 2 * k)
+    return np.where(v == SENT, SENT, y.astype(np.int64))
 
 
-def _unique_counts_mirror(s: np.ndarray):
-    """unique_counts_kernel per element of rows [..., n]: at a run start
-    the count is upper_bound(row, v) - i, by the kernel's galloping
-    search (probes at i + 1, i + 2, i + 4, ..., then a binary search);
-    also returns the loads the searches made."""
+def _revcomp_kernel_mirror(x: np.ndarray, k: int, both: bool, threads: int = 0,
+                           per_thread: int = 0) -> np.ndarray:
+    """revcomp_kmers_kernel over rows [..., m] (``both``: the both-strand
+    form, [..., 2m], a row's codes and then their reverse complements;
+    else [..., m]), block by block: a tile of ``threads * per_thread``
+    codes of one row, thread t's code pairs t, t + threads, ...
+    (``threads`` 0: the launch's choice of both); every output slot is
+    written exactly once."""
+    m = x.shape[-1]
+    rows = x.reshape(-1, m)
+    if not threads:
+        threads, per_thread = _row_tiling(len(rows), m, "RC")
+    tile = threads * per_thread
+    width = 2 * m if both else m
+    out = np.zeros((len(rows), width), dtype=np.int64)
+    written = np.zeros(out.shape, dtype=np.int64)
+    pair = 2 * (np.arange(per_thread // 2)[:, None] * threads + np.arange(threads)[None, :])
+    for g, row in enumerate(rows):
+        for i0 in range(0, m, tile):
+            for h in (0, 1):
+                i = (i0 + pair + h).ravel()
+                i = i[i < m]
+                if both:
+                    out[g, i] = row[i]
+                    written[g, i] += 1
+                out[g, (m if both else 0) + i] = _revcomp_mirror(row[i], k)
+                written[g, (m if both else 0) + i] += 1
+    assert (written == 1).all()
+    return out.reshape(*x.shape[:-1], width)
+
+
+def _run_end(row: np.ndarray, n: int, last: int, v: int):
+    """run_end: the first index past ``last`` whose value is not v (or n),
+    by one warp: probes at last + 2^lane bracket it, then rounds of 32
+    probes spread over the open gap narrow it. Returns (the index, the
+    rounds of loads)."""
+    differ = [last + (1 << lane) >= n or row[last + (1 << lane)] != v for lane in range(32)]
+    f = differ.index(True)  # lane 31 lies past the row
+    lo = last + (1 << (f - 1)) if f else last
+    hi = min(last + (1 << f), n)
+    rounds = 1
+    while hi - lo > 1:
+        d = hi - lo - 1
+        pos = [lo + 1 + ((d * lane) >> 5) for lane in range(32)]
+        assert all(lo < q < hi for q in pos)
+        dif = [row[q] != v for q in pos]
+        rounds += 1
+        if any(dif):
+            j = dif.index(True)
+            lo, hi = (pos[j - 1] if j else lo), pos[j]
+        else:
+            lo = pos[31]
+    return hi, rounds
+
+
+def _unique_counts_mirror(s: np.ndarray, threads: int = 0, per_thread: int = 0,
+                          warp: int = 32):
+    """unique_counts_kernel tile by tile of rows [..., n]: a tile of
+    ``threads * per_thread`` slots of one row (``threads`` 0: the launch's
+    choice of both), thread t's slot pairs t, t + threads, ...; a
+    boundary at an index whose value differs from the one before it (lane
+    0 loads that one; the other lanes take the lane before's) or at n; the
+    next boundary after a pair from the first later lane of its ``warp``
+    with one (a ballot), else each warp's first in the segment's later
+    warps, else in the tile's later segments, else the tail: the end of
+    the run of the tile's last slot, by ``_run_end`` (32 lanes, as the
+    kernel's last warp). Returns (values, counts, is_start, loads: the
+    slots, the slots before a pair, and the search rounds a tile)."""
     n = s.shape[-1]
     rows = s.reshape(-1, n)
+    if not threads:
+        threads, per_thread = _row_tiling(len(rows), n, "UC")
+    cpt, tile, none = per_thread // 2, threads * per_thread, 2 ** 31 - 1
+    warps = threads // warp
     values = np.full(rows.shape, SENT, dtype=np.int64)
     counts = np.zeros(rows.shape, dtype=np.int32)
     start = np.zeros(rows.shape, dtype=bool)
-    loads = 0
+    loads = {"slots": 0, "before": 0, "rounds": []}
+    lane = np.arange(threads) % warp
     for g, row in enumerate(rows):
-        for i in range(n):
-            v = row[i]
-            if v == SENT or (i > 0 and row[i - 1] == v):
-                continue
-            lo, hi, step = i, i + 1, 2
-            while hi < n and row[hi] == v:
-                loads += 1
-                lo, hi, step = hi, i + step, step << 1
-            loads += hi < n
-            hi = min(hi, n)
-            while hi - lo > 1:
-                mid = lo + (hi - lo) // 2
-                loads += 1
-                lo, hi = (mid, hi) if row[mid] == v else (lo, mid)
-            values[g, i], counts[g, i], start[g, i] = v, hi - i, True
+        for i0 in range(0, n, tile):
+            i = i0 + 2 * (np.arange(cpt)[:, None] * threads + np.arange(threads)[None, :])
+
+            def at(idx):
+                return np.where(idx < n, row[np.clip(idx, 0, n - 1)], SENT)
+
+            ax, ay = at(i), at(i + 1)
+            loads["slots"] += int((i < n).sum() + (i + 1 < n).sum())
+            lead = (lane == 0) & (i > 0) & (i < n)
+            loads["before"] += int(lead.sum())
+            prev = np.where(lane == 0, np.where(lead, row[np.clip(i - 1, 0, n - 1)], SENT),
+                            np.roll(ay, 1, axis=1))
+            in0, in1 = i < n, i + 1 < n
+            c0 = ~in0 | (ax != prev)
+            cut = ~in1 | (ay != ax)
+            st0 = in0 & (ax != SENT) & (ax != prev)
+            st1 = in1 & (ay != SENT) & cut
+            fb = np.where(c0, np.minimum(i, n), np.where(cut, np.minimum(i + 1, n), none))
+            fbw = fb.reshape(cpt, warps, warp)
+            has = fbw != none
+            nb = np.full(fbw.shape, none)
+            for ln in range(warp - 1):
+                later = has[..., ln + 1:]
+                idx = ln + 1 + later.argmax(-1)
+                nb[..., ln] = np.where(later.any(-1),
+                                       np.take_along_axis(fbw, idx[..., None], -1)[..., 0], none)
+            first = np.where(has.any(-1), np.take_along_axis(fbw, has.argmax(-1)[..., None],
+                                                              -1)[..., 0], none)
+            last = i0 + tile - 1
+            if last + 1 < n:
+                v = row[last]
+                tail, rounds = _run_end(row, n, last, v) if v != SENT else (last + 1, 0)
+                loads["rounds"].append(rounds)
+            else:
+                tail = n
+            carry = tail
+            for j in range(cpt - 1, -1, -1):
+                later_w = np.array([min(first[j, w + 1:], default=none) for w in range(warps)])
+                after = np.minimum(np.minimum(nb[j].reshape(threads),
+                                              later_w[np.arange(threads) // warp]), carry)
+                carry = min(carry, int(first[j].min()))
+                c0v = np.where(st0[j], np.where(cut[j], i[j] + 1, after) - i[j], 0)
+                c1v = np.where(st1[j], after - i[j] - 1, 0)
+                for h, ok, val, cnt, st in ((0, in0[j], ax[j], c0v, st0[j]),
+                                            (1, in1[j], ay[j], c1v, st1[j])):
+                    at_ = i[j][ok] + h
+                    values[g, at_] = np.where(st[ok], val[ok], SENT)
+                    counts[g, at_] = cnt[ok]
+                    start[g, at_] = st[ok]
     return (values.reshape(s.shape), counts.reshape(s.shape), start.reshape(s.shape), loads)
 
 
@@ -524,16 +673,45 @@ def test_kmer_codes_mirror_on_span_edges(case):
         _held_to_jax_and_plain(codes, lengths, k, **span)
 
 
-@pytest.mark.parametrize("k", [1, 5, 15])
-def test_revcomp_mirror_matches_jax_and_plain(k):
-    rng = np.random.default_rng(k)
-    x = rng.integers(0, 1 << (2 * k), 300).astype(np.int64)
+def _revcomp_inputs(rng, k):
+    """Codes of 2k bits, uint32 values with bits above 2k, and SENTINEL."""
+    x = np.concatenate([rng.integers(0, 1 << (2 * k), 200), rng.integers(0, 1 << 32, 100),
+                        [0, (1 << (2 * k)) - 1, 1 << (2 * k), SENT - 1]]).astype(np.int64)
     x[::7] = SENT
+    return x
+
+
+@pytest.mark.parametrize("k", range(1, 16))
+def test_revcomp_mirror_matches_jax_and_plain(k):
+    """The constant-time reverse complement, for every k: against JAX on
+    uint32 codes (SENTINEL and bits above 2k included), against the plain
+    version on any int64 (negative ones too), and through the kernel's
+    tiling at both tile sizes."""
+    rng = np.random.default_rng(k)
+    x = _revcomp_inputs(rng, k)
     want = np.asarray(jk.revcomp_kmers(jnp.asarray(x.astype(np.uint32)), k))
     np.testing.assert_array_equal(_revcomp_mirror(x, k).astype(np.uint32), want)
-    neg = np.concatenate([x, rng.integers(-(1 << 40), 1 << 40, 50)])
-    np.testing.assert_array_equal(_revcomp_mirror(neg, k),
-                                  tk.revcomp_kmers_plain(torch.from_numpy(neg), k).numpy())
+    neg = np.concatenate([x, rng.integers(-(1 << 62), 1 << 62, 50), [-1, -SENT, 1 << 40]])
+    plain = tk.revcomp_kmers_plain(torch.from_numpy(neg), k).numpy()
+    np.testing.assert_array_equal(_revcomp_mirror(neg, k), plain)
+    for tiling in ({}, dict(threads=4, per_thread=2), dict(threads=4, per_thread=_CU["RC_V"])):
+        np.testing.assert_array_equal(_revcomp_kernel_mirror(neg, k, False, **tiling), plain)
+
+
+@pytest.mark.parametrize("shape", [(301,), (300,), (4, 77), (3, 1), (5, 64)])
+def test_both_strands_mirror_matches_jax_and_plain(shape):
+    """The both-strand form against the JAX step's expression,
+    ``concatenate([x, revcomp_kmers(x, k)])`` (row by row for [G, M]), and
+    the plain version, at the kernel's tiling and at small tiles."""
+    rng = np.random.default_rng(sum(shape))
+    for k in (1, 8, 15):
+        x = rng.choice(_revcomp_inputs(rng, k), shape)
+        want = _jax_rows(lambda r: jnp.concatenate([r, jk.revcomp_kmers(r, k)]),
+                         jnp.asarray(x.reshape(-1, shape[-1]).astype(np.uint32)))[0]
+        plain = tk.both_strands_plain(torch.from_numpy(x), k).numpy()
+        np.testing.assert_array_equal(plain.reshape(want.shape).astype(np.uint32), want)
+        for tiling in ({}, dict(threads=4, per_thread=2), dict(threads=3, per_thread=4)):
+            np.testing.assert_array_equal(_revcomp_kernel_mirror(x, k, True, **tiling), plain)
 
 
 def _run_rows():
@@ -546,40 +724,79 @@ def _run_rows():
     random_rows = np.sort(rng.integers(0, 12, (5, 64)).astype(u), axis=1)
     random_rows[1, 50:] = s
     random_rows[2, :] = s
+
+    def sorted_rows(G, N, hi, sent_from):
+        x = np.sort(rng.integers(0, hi, (G, N)), axis=1).astype(u)
+        x[:, sent_from:] = s
+        return x
+
     return {
         "all_sentinel": np.full((1, 37), s, dtype=u),
+        "all_sentinel_rows": np.full((3, 70), s, dtype=u),
         "one_run_fills_the_row": np.full((1, 1000), 3, dtype=u),
+        "poly_a_rows": np.zeros((3, 200), dtype=u),
         "run_ends_at_the_row_end": np.array([[0, 4, 7, 7, 7, 7, 7, 7, 7]], dtype=u),
         "run_ends_at_the_first_sentinel": np.array([[5, 5, 5, s, s]], dtype=u),
         "single_element": np.array([[42]], dtype=u),
         "single_sentinel": np.array([[s]], dtype=u),
+        "n_1_rows": np.array([[5], [s], [5]], dtype=u),
         "runs_meet_at_row_boundaries": boundary,
         "random_rows": random_rows,
         "runs_of_every_length": np.sort(np.repeat(np.arange(40, dtype=u),
                                                   np.arange(1, 41)))[None, :],
+        "runs_cross_one_tile": sorted_rows(3, 500, 40, 470),
+        "runs_cross_many_tiles": sorted_rows(2, 300, 3, 300),
+        "ragged_last_tile": sorted_rows(2, 86, 30, 80),
+        "sentinel_from_inside_a_tile": sorted_rows(2, 64, 9, 37),
     }
+
+
+# small tiles (the kernel's arithmetic at the sizes a test can hold): 32
+# and 16 slots of warps of 4, and 4 slots of one warp
+_SMALL_RUN_TILES = [dict(threads=8, per_thread=4, warp=4), dict(threads=8, per_thread=2, warp=4),
+                    dict(threads=2, per_thread=2, warp=2)]
 
 
 @pytest.mark.parametrize("case", list(_run_rows()))
 def test_unique_counts_mirror_matches_jax(case):
+    """The tile scan at the kernel's tiling and at small tiles, against JAX
+    row by row and the plain version."""
     rows = _run_rows()[case]
-    v, c, st, _ = _unique_counts_mirror(rows.astype(np.int64))
     want = _jax_rows(jk.unique_counts_sorted, *[jnp.asarray(rows)])
-    np.testing.assert_array_equal(_as_u32(v), want[0])
-    np.testing.assert_array_equal(c, want[1])
-    np.testing.assert_array_equal(st, want[2])
     got = tk.unique_counts_sorted_plain(torch.from_numpy(rows.astype(np.int64)))
-    for a, b in zip((v, c, st), got):
-        np.testing.assert_array_equal(a, b.numpy())
+    for tiling in ({}, *_SMALL_RUN_TILES):
+        v, c, st, _ = _unique_counts_mirror(rows.astype(np.int64), **tiling)
+        np.testing.assert_array_equal(_as_u32(v), want[0])
+        np.testing.assert_array_equal(c, want[1])
+        np.testing.assert_array_equal(st, want[2])
+        for a, b in zip((v, c, st), got):
+            np.testing.assert_array_equal(a, b.numpy())
 
 
 def test_unique_counts_search_is_logarithmic_in_the_run():
-    """A poly-A region: one k-mer filling the row costs about 2 log2(N)
-    loads, not N."""
+    """The loads of the tile scan at a serial region's 17,200 slots: each
+    slot once, one slot before a pair a warp and segment, and one search a
+    tile but the row's last, whose rounds of 32 probes grow as log2 of the
+    run's length past the tile over 5: a poly-A region's single k-mer of
+    R * W copies costs at most 1 + ceil(log2(N) / 5) = 4 rounds a tile,
+    not a search from every run start; short runs cost 1."""
     n = 200 * 86
-    _, c, _, loads = _unique_counts_mirror(np.full((1, n), 0, dtype=np.int64))
+    threads, per_thread = _row_tiling(1, n, "UC")
+    tiles = -(-n // (threads * per_thread))
+    for rows, most in ((np.zeros((1, n), dtype=np.int64), 1 + int(np.ceil(np.log2(n) / 5))),
+                       (np.repeat(np.arange(10), [1, 2, 3, 7, 13, 100, 1000, 2000, 4000, 10074])
+                        [None, :], 4),
+                       (np.sort(np.random.default_rng(1).integers(0, 6000, (1, n))), 2)):
+        _, c, _, loads = _unique_counts_mirror(rows)
+        np.testing.assert_array_equal(c, tk.unique_counts_sorted_plain(
+            torch.from_numpy(rows))[1].numpy())
+        assert loads["slots"] == n
+        assert loads["before"] <= tiles * per_thread // 2 * threads // 32
+        assert len(loads["rounds"]) == tiles - 1  # every tile but the row's last
+        assert max(loads["rounds"]) <= most
+    _, c, _, loads = _unique_counts_mirror(np.zeros((1, n), dtype=np.int64))
     assert c[0, 0] == n and int(c.sum()) == n
-    assert loads <= 2 * int(np.ceil(np.log2(n))) + 2
+    assert min(loads["rounds"]) >= 2  # the run goes on past every tile
 
 
 def _tables(rng, values, m, hit_rate):
