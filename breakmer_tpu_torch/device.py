@@ -10,13 +10,20 @@
 
 (The JAX package's "auto" falls back to the CPU silently; the port
 diverges on purpose.)
+
+``virtual_devices(devices)`` stands in for the JAX tests' virtual CPU
+devices: inside it, ``local_devices`` gives ``devices`` (which may repeat
+one device), so the runner's mesh and sharded index run over them.
 """
 
 from __future__ import annotations
 
-from typing import List
+import contextlib
+from typing import Iterator, List, Optional, Sequence
 
 import torch
+
+_virtual: Optional[List[torch.device]] = None  # set by virtual_devices
 
 
 def resolve(device="auto") -> torch.device:
@@ -38,8 +45,29 @@ def local_devices(device="auto") -> List[torch.device]:
     """The devices a process shards its work over, the counterpart of
     ``jax.local_devices()``: every visible card for "auto" and "cuda",
     the one named device for "cuda:N" and "cpu". The runner's mesh and
-    sharded index take their devices from here alone."""
+    sharded index take their devices from here alone. Inside
+    ``virtual_devices`` it gives that context's devices, whatever it is
+    asked."""
+    if _virtual is not None:
+        return list(_virtual)
     dev = resolve(device)
     if dev.type == "cuda" and dev.index is None:
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [dev]
+
+
+@contextlib.contextmanager
+def virtual_devices(devices: Sequence) -> Iterator[List[torch.device]]:
+    """Within the ``with`` block, ``local_devices`` returns ``devices``
+    (a virtual mesh when a device repeats: ``[cuda:0] * 4`` on one card,
+    ``[cpu] * 4`` in the tests); the previous devices come back on exit,
+    also after an exception."""
+    global _virtual
+    devs = [torch.device(d) for d in devices]
+    if not devs:
+        raise ValueError("virtual_devices: no devices given")
+    prev, _virtual = _virtual, devs
+    try:
+        yield list(devs)
+    finally:
+        _virtual = prev

@@ -66,8 +66,8 @@ phase's wall time is printed):
      at the bench's shape, one SW launch a shard; both forms timed;
  13. the k-mer batch step of phase 9 over the same mesh, full and
      packed, exact against the unsharded CUDA step and the CPU step;
- 14. the batched runner on the 100-gene panel with
-     ``device.local_devices`` patched to [cuda:0] * 4 (its k-mer launches
+ 14. the batched runner on the 100-gene panel under
+     ``device.virtual_devices([cuda:0] * 4)`` (its k-mer launches
      through a (2, 2) mesh), byte-identical to phase 6's serial output;
  15. a seed table of a 24-chromosome, ~300 Mbp genome sharded over
      [cuda:0] * 4 and [cuda:0]: 2,000 contigs' candidate windows equal
@@ -85,6 +85,15 @@ phase's wall time is printed):
      pinned; its JSON line;
  20. bench_genome_e2e at 100 Mbp on the card: ins, del and trl called,
      the warm run (index artifact reloaded) equal to the cold one.
+ 21. the entry points of __graft_entry__.py, ported as
+     breakmer_tpu_torch.graft_entry:
+     entry()'s step on the card, called with no argument, exact against
+     entry("cpu") on its example arguments and on tiled reads at its
+     shapes, one launch of each kernel a step (two of kmer_codes), timed
+     by CUDA events and by queued calls; then dryrun_multichip(4) over
+     [cuda:0] * 4 (the sharded step, one SW launch a shard; the sharded
+     seed table; the batched runner over the mesh against the serial
+     one), its wall time and each stage's launches.
 The last two lines are the kernel table (with each kernel's bound and
 the time of one PyTorch call computing the same function, null where
 there is none) and
@@ -100,7 +109,6 @@ packed two to a lane.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import shutil
@@ -1321,20 +1329,6 @@ def card0() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-@contextlib.contextmanager
-def local_devices(devices):
-    """``device.local_devices`` patched to ``devices`` (a virtual mesh:
-    the runner's only source of its devices), restored afterwards."""
-    from breakmer_tpu_torch import device
-
-    orig = device.local_devices
-    device.local_devices = lambda _device="auto": list(devices)
-    try:
-        yield
-    finally:
-        device.local_devices = orig
-
-
 def same_arrays(want, got) -> bool:
     return all(a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
                for a, b in zip(want, got))
@@ -1420,10 +1414,12 @@ def phase_sharded_kmer_batch_step(card):
 
 
 def phase_mesh_runner(card, panel, batched_rate):
-    """The batched runner on the 100-gene panel with ``local_devices`` at
-    [cuda:0] * 4: its k-mer launches go through a (2, 2) mesh. Twice
-    (the second run timed as warm); svs.out and the VCF byte-identical to
-    phase 6's serial CUDA output. Returns the warm run's SW launches."""
+    """The batched runner on the 100-gene panel under
+    ``device.virtual_devices([cuda:0] * 4)``: its k-mer launches go
+    through a (2, 2) mesh. Twice (the second run timed as warm); svs.out
+    and the VCF byte-identical to phase 6's serial CUDA output. Returns
+    the warm run's SW launches."""
+    from breakmer_tpu_torch.device import virtual_devices
     from breakmer_tpu_torch.ops import sw_cuda
     from breakmer_tpu_torch.utils.meter import METER
 
@@ -1434,7 +1430,7 @@ def phase_mesh_runner(card, panel, batched_rate):
     for label in ("first", "warm"):
         out = work / f"mesh_{label}"
         sw_cuda.LAUNCHES = 0  # this run of the mesh runner starts here
-        with local_devices([card0()] * 4):
+        with virtual_devices([card0()] * 4):
             events, metrics, setup_s, run_s, runner = run_panel(kw, out, "cuda")
         launches = sw_cuda.LAUNCHES
         kb = runner.kmer_pipeline
@@ -1499,6 +1495,7 @@ def phase_sharded_index(card, panel):
     shard_genome_index over [cuda:0] * 4, byte-identical to phase 6.
     Returns that run's SW launches."""
     from breakmer_tpu_torch.align.index import GenomeIndex
+    from breakmer_tpu_torch.device import virtual_devices
     from breakmer_tpu_torch.ops import sw_cuda
     from breakmer_tpu_torch.parallel.index_shard import ShardedGenomeIndex, make_shard_mesh
 
@@ -1553,7 +1550,7 @@ def phase_sharded_index(card, panel):
     cfg_kwargs, _, work = panel
     out = work / "sharded_index"
     sw_cuda.LAUNCHES = 0  # this run of the sharded-index runner starts here
-    with local_devices([dev] * 4):
+    with virtual_devices([dev] * 4):
         _, metrics, setup_s, run_s, runner = run_panel(
             {**cfg_kwargs, "batch_regions": False, "shard_genome_index": True}, out, "cuda")
     launches = sw_cuda.LAUNCHES
@@ -1733,6 +1730,103 @@ def phase_genome_e2e(card):
           f"{rec['peak_rss_mb']} MB [{card}]", flush=True)
 
 
+# launches of one entry() step (parallel/step.py): one SW launch over all
+# G * B pairs, kmer_codes for the reads and for the references, the
+# both-strand table (counted as revcomp_kmers), one each of the others
+ENTRY_LAUNCHES = {"sw_wavefront": 1, "kmer_codes": 2, "revcomp_kmers": 1,
+                  "unique_counts_sorted": 1, "subtract_sorted": 1}
+DRYRUN_STAGES = ("_dryrun_step", "_dryrun_index", "_dryrun_full_panel")
+
+
+def zero_launches() -> None:
+    from breakmer_tpu_torch.ops import kmer_cuda, sw_cuda
+
+    sw_cuda.LAUNCHES = 0
+    for name in kmer_cuda.LAUNCHES:
+        kmer_cuda.LAUNCHES[name] = 0
+
+
+def read_launches() -> dict:
+    from breakmer_tpu_torch.ops import kmer_cuda, sw_cuda
+
+    return {"sw_wavefront": sw_cuda.LAUNCHES, **kmer_cuda.LAUNCHES}
+
+
+def phase_graft_entry(card):
+    """The entry points of breakmer_tpu_torch.graft_entry on the card:
+    entry()'s step, called with no argument, exact against entry("cpu")'s
+    on its example arguments and on tiled reads at its shapes, with
+    ENTRY_LAUNCHES a step; ms a step (CUDA events) and device
+    ms (queued calls); then dryrun_multichip(4) over [cuda:0] * 4, its
+    wall time and each stage's launches (stage 1: one SW launch a shard,
+    the k-mer half once a regions block). Returns ({kernel: launches of
+    one step}, [{kernel: launches} of each dryrun stage])."""
+    from breakmer_tpu_torch import graft_entry
+    from breakmer_tpu_torch.parallel.step import to_numpy
+    from breakmer_tpu_torch.timing import cuda_ms, queued_ms
+
+    fn, args = graft_entry.entry()
+    check(all(a.is_cuda for a in args), "entry(): the example arguments are off the card")
+    cpu_fn, cpu_args = graft_entry.entry("cpu")
+    (G, R, L), LREF = cpu_args[0].shape, cpu_args[2].shape[1]
+    (GB, GLQ), GLT = cpu_args[4].shape[1:], cpu_args[5].shape[2]
+    tiled = tuple(torch.from_numpy(a) for a in
+                  tiled_region_inputs(G, R, L, LREF, GB, GLQ, GLT))
+    step_launches = {}
+    for label, host in (("example arguments", cpu_args), ("tiled reads", tiled)):
+        on_card = args if host is cpu_args else tuple(a.to(args[0].device) for a in host)
+        zero_launches()  # one entry() step starts here
+        got = fn(*on_card)
+        torch.cuda.synchronize()
+        step_launches = read_launches()
+        check(step_launches == ENTRY_LAUNCHES,
+              f"entry() step ({label}): launches {step_launches}, not {ENTRY_LAUNCHES}")
+        got, want = to_numpy(got), to_numpy(cpu_fn(*host))
+        check(same_arrays(want, got), f"entry() step ({label}): CUDA != CPU")
+        kept = int((got[1] > 0).sum())
+        check(label != "tiled reads" or kept > 0, "entry() step on tiled reads: no k-mer kept")
+        print(f"  entry() step G={G} R={R} L={L} LREF={LREF} pairs {GB}x{GLQ}x{GLT}, "
+              f"{label}: CUDA == CPU ({kept} kept k-mers), launches {step_launches} "
+              f"[{card}]", flush=True)
+    ms = cuda_ms(lambda: fn(*args))
+    dms = queued_ms(lambda: fn(*args))
+    print(f"  entry() step: {ms:.4f} ms a step (events), {dms:.4f} ms device (queued) "
+          f"[{card}]", flush=True)
+
+    stages, originals = {}, {name: getattr(graft_entry, name) for name in DRYRUN_STAGES}
+
+    def counted(name, stage):
+        def run(devs):
+            zero_launches()  # this dryrun stage starts here
+            t0 = time.perf_counter()
+            stage(devs)
+            torch.cuda.synchronize()
+            stages[name] = (time.perf_counter() - t0, read_launches())
+        return run
+
+    try:
+        for name, stage in originals.items():
+            setattr(graft_entry, name, counted(name, stage))
+        t0 = time.perf_counter()
+        graft_entry.dryrun_multichip(4, devices=[card0()] * 4)
+        wall = time.perf_counter() - t0
+    finally:
+        for name, stage in originals.items():
+            setattr(graft_entry, name, stage)
+    check(list(stages) == list(DRYRUN_STAGES), f"dryrun stages run: {list(stages)}")
+    want_step = {name: n * (4 if name == "sw_wavefront" else 2)
+                 for name, n in ENTRY_LAUNCHES.items()}  # 2x2 mesh: 4 shards, 2 rows
+    check(stages["_dryrun_step"][1] == want_step,
+          f"dryrun stage 1: launches {stages['_dryrun_step'][1]}, not {want_step}")
+    check(all(n > 0 for n in stages["_dryrun_full_panel"][1].values()),
+          f"dryrun stage 3: launches {stages['_dryrun_full_panel'][1]}")
+    print(f"  dryrun_multichip(4) over [{card0()}] * 4: {wall:.2f} s; "
+          + "; ".join(f"stage {i} {s:.2f} s, launches {n}"
+                      for i, (s, n) in enumerate(stages.values(), 1))
+          + f" [{card}]", flush=True)
+    return step_launches, [n for _, n in stages.values()]
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "sw_wavefront": ("breakmer_tpu_torch/csrc/sw_wavefront.cu",
                      "breakmer_tpu/ops/sw_pallas.py:179"),
@@ -1795,6 +1889,7 @@ def main() -> int:
     timed("sweep_accuracy cuda vs cpu", phase_sweep, card)
     timed("probe_fetch", phase_fetch_probe)
     timed("bench_genome_e2e 100 Mbp", phase_genome_e2e, card)
+    entry_launches, dryrun_launches = timed("graft entry", phase_graft_entry, card)
 
     head = next(r for r in sw_rows if tuple(r["shape"]) == HEADLINE)
     rows["sw_wavefront"] = dict(max_abs_err=sw_err, shape=head["shape"], ms=head["ms"],
@@ -1814,6 +1909,10 @@ def main() -> int:
     for name, row in kmer_rows.items():
         rows[name] = dict(row, batched_path_launches=kmer_batched[name])
         launches[name] = kmer_launches[name]
+    for name in ENTRY_LAUNCHES:
+        rows[name]["graft_entry_launches"] = {
+            "entry_step": entry_launches[name],
+            "dryrun_stages": [stage[name] for stage in dryrun_launches]}
     rows["kmer_codes"]["sample_only_kmers_call"] = kmer_call
     table = []
     for name, (source, replaces) in KERNELS.items():
@@ -1834,6 +1933,7 @@ def main() -> int:
                                              "mesh_runner_launches",
                                              "sharded_index_runner_launches",
                                              "multihost_launches", "agreement_launches",
+                                             "graft_entry_launches",
                                              "main_path_by_shape", "batched_path_by_shape",
                                              "contig_device_ms", "bound_share", "batch_step",
                                              "form", "alone", "sample_only_kmers_call")
