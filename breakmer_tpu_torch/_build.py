@@ -107,6 +107,8 @@ def library() -> ctypes.CDLL:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.sw_wavefront_launch.restype = i32
         lib.sw_wavefront_launch.argtypes = [vp, vp] + [i32] * 12 + [vp] * 6
+        lib.sw_block_launch.restype = i32
+        lib.sw_block_launch.argtypes = [vp, vp] + [i32] * 12 + [vp] * 4
         lib.sw_wavefront_error_string.restype = ctypes.c_char_p
         lib.sw_wavefront_error_string.argtypes = [i32]
         lib.sw_ceiling_probe_launch.restype = i32

@@ -6,12 +6,18 @@ The kernel library is built and loaded on the first call, never at
 import, so this module imports on a machine without ``nvcc`` or a card.
 The kernel runs on PyTorch's current stream and allocates nothing: the
 wrapper computes the launch plan (``launch_plan``, plain Python that the
-CPU tests reach) and allocates the outputs and, for a query longer than
-one strip, the zeroed scratch that links the strips of a pair.
+CPU tests reach) and allocates the outputs and, for a ticket-form launch
+of a query longer than one strip, the zeroed scratch that links the
+strips of a pair. The plan takes one of two forms: ``"ticket"`` (warps
+take (pair, strip) items from an atomic ticket, strips linked through
+global memory; R = 4 or 8) or, for a launch of at most FEW_PAIRS pairs,
+``"block"`` (one block a pair, its strips linked through shared memory;
+R = 2), whichever its clock model says is faster.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -19,28 +25,47 @@ import torch
 from breakmer_tpu_torch import _build
 from breakmer_tpu_torch.ops.sw import SWParams
 
-# kernel launches made by sw_score_cuda (one per call with B > 0)
+# kernel launches made by sw_score_cuda (one per call with B > 0), in all
+# and by form
 LAUNCHES = 0
+LAUNCHES_BY_FORM = {"ticket": 0, "block": 0}
 _LAUNCH = None  # the kernel library's sw_wavefront_launch, at the first launch
+_BLOCK_LAUNCH = None  # and its sw_block_launch
 
-ROWS_PER_LANE = (4, 8)  # the kernel's instantiations of R
-WARPS_PER_BLOCK = 4         # 128 threads, the kernel's __launch_bounds__
+ROWS_PER_LANE = (4, 8)  # the ticket form's instantiations of R
+BLOCK_ROWS_PER_LANE = (2,)  # the block form's
+FORMS = {"ticket": ROWS_PER_LANE, "block": BLOCK_ROWS_PER_LANE}
+WARPS_PER_BLOCK = 4         # 128 threads, the ticket form's __launch_bounds__
+BLOCK_MAX_STRIPS = 32       # the block form's 1024 threads, one warp a strip
+SMEM_LIMIT = 227 * 1024     # shared memory a block may take on this card
+RING, TPAD, TTAIL = 64, 32, 48  # the block form's ring and target pads
 SMS = 132                   # H100 SXM; launch_plan takes the card's own count
-# At each R: the clocks a warp spends on one step alone on its SM
-# partition, its share of a partition that holds four warps, and the steps
-# a strip runs behind the one above it. Measured on an NVIDIA H100 80GB
-# HBM3 at 700 W by chip_smoke.py's step-cost table (sw_step_costs).
-STEP_CYCLES = {4: (217, 113, 149), 8: (274, 171, 127)}
+# The plan weighs the block form only for launches of at most this many
+# pairs: realign's serial rounds (1-12 pairs on the panel). The batched
+# path's launches (25-239 pairs) and every larger one keep the ticket form.
+FEW_PAIRS = 12
+# At each R of the ticket form: the clocks a warp spends on one step alone
+# on its SM partition, its share of a partition that holds four warps, and
+# the steps a strip runs behind the one above it. At each R of the block
+# form, whose strips share one SM: the clocks a column of a pair of four
+# strips takes (one warp a partition), a warp's share of a column past
+# that, and the steps each strip after the first adds. Measured on an
+# NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py's step-cost table
+# (sw_step_costs).
+STEP_CYCLES = {2: (151, 74, 78), 4: (217, 113, 149), 8: (274, 171, 127)}
 _GAP_LIMIT = 1 << 20        # |scoring parameter| bound that keeps NEG from wrapping
 
 
 class LaunchPlan(NamedTuple):
     """How one launch covers B pairs of Lq x Lt: strips of 32 * R query
-    rows, one warp a strip (``warps`` = B * strips work items, taken in
-    (pair, strip) order), ``blocks`` blocks of ``threads`` threads; for
-    strips > 1 one zeroed int32 scratch of ``scratch_ints``: a header of
-    ``header_ints`` (ticket, done a pair, each strip's best) padded to 16
-    bytes, then the boundary rows, one (H, j + 1, F, j + 1) line a column.
+    rows, one warp a strip (``warps`` = B * strips), ``blocks`` blocks of
+    ``threads`` threads. ``form`` "ticket": the warps take work items in
+    (pair, strip) order; for strips > 1 one zeroed int32 scratch of
+    ``scratch_ints``: a header of ``header_ints`` (ticket, done a pair,
+    each strip's best) padded to 16 bytes, then the boundary rows, one
+    (H, j + 1, F, j + 1) line a column. ``form`` "block": block b is pair
+    b, its warp k strip k, with ``smem_bytes`` of shared memory (the
+    boundary rings, the strips' bests, the target) and no scratch.
     ``pack``: a row's best is one key (scores < 2^15, Lt <= 2^16)."""
     rows_per_lane: int
     strips: int
@@ -50,44 +75,92 @@ class LaunchPlan(NamedTuple):
     pack: bool
     header_ints: int
     scratch_ints: int
-    smem_bytes: int = 0  # the kernel keeps its state in registers
+    smem_bytes: int = 0  # the ticket form keeps its state in registers
+    form: str = "ticket"
 
 
 def _strips(Lq: int, R: int) -> int:
     return -(-Lq // (32 * R))
 
 
+def form_of(R: int) -> str:
+    """The form whose kernel is instantiated at rows a lane R."""
+    for form, rs in FORMS.items():
+        if R in rs:
+            return form
+    raise ValueError(f"rows_per_lane {R} not in {ROWS_PER_LANE + BLOCK_ROWS_PER_LANE}")
+
+
+def block_smem_bytes(S: int, Lt: int) -> int:
+    """The block form's shared memory (``csrc/sw_wavefront.cu``,
+    ``block_smem_bytes``): S - 1 rings of RING (H, F) columns, a ready and
+    a taken count each, S bests, padded to 16 bytes; then the target
+    between its sentinel pads, padded to 16."""
+    head = -(-(8 * RING * (S - 1) + 8 * (S - 1) + 12 * S) // 16) * 16
+    return head + -(-(TPAD + Lt + TTAIL) // 16) * 16
+
+
+def _fits(R: int, Lq: int, Lt: int) -> bool:
+    """Whether the form of R takes a pair of Lq x Lt: the block form needs
+    its strips in one block and its shared memory within the card's."""
+    if form_of(R) == "ticket":
+        return True
+    S = _strips(Lq, R)
+    return S <= BLOCK_MAX_STRIPS and block_smem_bytes(S, Lt) <= SMEM_LIMIT
+
+
 def step_clocks(B: int, Lq: int, Lt: int, R: int, sms: int = SMS) -> float:
-    """Estimated clocks of a launch at R: its steps (a strip's columns plus
-    the lane ramp, and the lag of each strip after the first) times a
-    step's clocks, the warp's own while its SM partition is not full, its
-    share of the partition when the warps outnumber the partitions."""
+    """Estimated clocks of a launch at R (in R's form): its steps (a
+    strip's columns plus the lane ramp, and the lag of each strip after
+    the first) times a step's clocks, the warp's own while its SM
+    partition is not full, its share of the partition when the warps
+    outnumber the partitions (in the block form, the partitions of the
+    SMs that hold the blocks)."""
     S = _strips(Lq, R)
     alone, shared, lag = STEP_CYCLES[R]
-    per_partition = B * S / (4 * sms)
+    if form_of(R) == "block":  # a block's warps share its SM
+        per_partition = -(-B // sms) * S / 4
+    else:
+        per_partition = B * S / (4 * sms)
     return (Lt + 31 + (S - 1) * lag) * max(alone, shared * per_partition)
 
 
-def _rows_per_lane(B: int, Lq: int, Lt: int, sms: int) -> int:
-    """The R of the fewest estimated clocks: a larger R costs less a cell,
-    a smaller one gives a launch of few pairs more warps."""
-    return min(ROWS_PER_LANE, key=lambda R: (step_clocks(B, Lq, Lt, R, sms), -R))
+def _rows_per_lane(B: int, Lq: int, Lt: int, sms: int, rows=ROWS_PER_LANE) -> int:
+    """The R of ``rows`` of the fewest estimated clocks: a larger R costs
+    less a cell, a smaller one gives a launch of few pairs more warps."""
+    return min(rows, key=lambda R: (step_clocks(B, Lq, Lt, R, sms), -R))
 
 
+@functools.lru_cache(maxsize=1024)  # a wrapper call asks again for each launch
 def launch_plan(B: int, Lq: int, Lt: int, rows_per_lane: Optional[int] = None,
                 sms: int = SMS, match: int = 2) -> LaunchPlan:
     """The launch of ``sw_score_cuda`` for B pairs of Lq x Lt on a card of
-    ``sms`` SMs; ``rows_per_lane`` forces R (one of ``ROWS_PER_LANE``)."""
-    R = _rows_per_lane(B, Lq, Lt, sms) if rows_per_lane is None else rows_per_lane
-    if R not in ROWS_PER_LANE:
-        raise ValueError(f"rows_per_lane {R} not in {ROWS_PER_LANE}")
+    ``sms`` SMs: the form and R of the fewest estimated clocks among those
+    that take the shape (the block form only for B <= FEW_PAIRS).
+    ``rows_per_lane`` forces R, and with it the form; a forced R that
+    cannot take the shape raises."""
+    if rows_per_lane is not None:
+        form_of(rows_per_lane)  # raises for an R of no form
+        rows = (rows_per_lane,)
+    else:
+        rows = ROWS_PER_LANE + (BLOCK_ROWS_PER_LANE if B <= FEW_PAIRS else ())
+    rows = tuple(R for R in rows if _fits(R, Lq, Lt))
+    if not rows:
+        raise ValueError(f"the block form at R={rows_per_lane} cannot take "
+                         f"Lq={Lq}, Lt={Lt} (at most {BLOCK_MAX_STRIPS} strips of 32 R "
+                         f"rows and {SMEM_LIMIT} bytes of shared memory a block)")
+    R = _rows_per_lane(B, Lq, Lt, sms, rows)
     S = _strips(Lq, R)
     warps = B * S
+    pack = match * min(Lq, Lt) < (1 << 15) and Lt <= (1 << 16)
+    if form_of(R) == "block":
+        return LaunchPlan(rows_per_lane=R, strips=S, warps=warps, threads=32 * S, blocks=B,
+                          pack=pack, header_ints=0, scratch_ints=0,
+                          smem_bytes=block_smem_bytes(S, Lt), form="block")
     header = 1 + B + 3 * warps if S > 1 else 0
     return LaunchPlan(
         rows_per_lane=R, strips=S, warps=warps, threads=32 * WARPS_PER_BLOCK,
-        blocks=-(-warps // WARPS_PER_BLOCK),
-        pack=match * min(Lq, Lt) < (1 << 15) and Lt <= (1 << 16),
+        blocks=-(-warps // WARPS_PER_BLOCK), pack=pack,
         header_ints=header,
         scratch_ints=-(-header // 4) * 4 + 4 * B * (S - 1) * Lt)
 
@@ -104,11 +177,12 @@ def sw_score_cuda(
     no_n: caller asserts no mid-sequence N in either input; takes the
     compare-and-select substitution (bit-identical results). Ignored
     unless mismatch > 0 and gap_extend > 0, which the exactness argument
-    needs (as in the TPU kernel). rows_per_lane: force the plan's R;
-    unpacked: keep a row's best as score and column apart, the form the
-    plan takes past the packed key's range, at any shape (the card tests
-    hold every instantiation against the plain version)."""
-    global LAUNCHES, _LAUNCH
+    needs (as in the TPU kernel). rows_per_lane: forces the plan's R, and
+    with it the form (``launch_plan``; an R the shape cannot take raises
+    before any launch); unpacked: keep a row's best as score and column apart, the
+    form the plan takes past the packed key's range, at any shape (the
+    card tests hold every instantiation against the plain version)."""
+    global LAUNCHES, _LAUNCH, _BLOCK_LAUNCH
 
     if q.device.type != "cuda" or t.device != q.device:
         raise ValueError(f"sw_score_cuda: q on {q.device}, t on {t.device}; "
@@ -138,20 +212,31 @@ def sw_score_cuda(
     plan = launch_plan(B, Lq, Lt, rows_per_lane, _sms(q.device), params.match)
     if unpacked:
         plan = plan._replace(pack=False)
-    header = bnd = None
-    if plan.strips > 1:
-        scratch = torch.zeros(plan.scratch_ints, dtype=torch.int32, device=q.device)
-        header = scratch.data_ptr()
-        bnd = header + 4 * (plan.scratch_ints - 4 * B * (plan.strips - 1) * Lt)
-    if _LAUNCH is None:
-        _LAUNCH = _build.library().sw_wavefront_launch
-    _build.launch(
-        _LAUNCH, q.get_device(), lambda: f"sw_wavefront (B={B}, Lq={Lq}, Lt={Lt}, {plan})",
-        q.data_ptr(), t.data_ptr(), B, Lq, Lt,
-        params.match, params.mismatch, params.gap_open, params.gap_extend,
-        int(no_n), int(plan.pack), plan.rows_per_lane, plan.blocks, plan.threads,
-        header, bnd, score.data_ptr(), q_end.data_ptr(), t_end.data_ptr(),
-    )
+    what = lambda: f"sw_wavefront (B={B}, Lq={Lq}, Lt={Lt}, {plan})"  # noqa: E731
+    if plan.form == "block":
+        if _BLOCK_LAUNCH is None:
+            _BLOCK_LAUNCH = _build.library().sw_block_launch
+        _build.launch(
+            _BLOCK_LAUNCH, q.get_device(), what, q.data_ptr(), t.data_ptr(), B, Lq, Lt,
+            params.match, params.mismatch, params.gap_open, params.gap_extend,
+            int(no_n), int(plan.pack), plan.rows_per_lane, plan.threads, plan.smem_bytes,
+            score.data_ptr(), q_end.data_ptr(), t_end.data_ptr(),
+        )
+    else:
+        header = bnd = None
+        if plan.strips > 1:
+            scratch = torch.zeros(plan.scratch_ints, dtype=torch.int32, device=q.device)
+            header = scratch.data_ptr()
+            bnd = header + 4 * (plan.scratch_ints - 4 * B * (plan.strips - 1) * Lt)
+        if _LAUNCH is None:
+            _LAUNCH = _build.library().sw_wavefront_launch
+        _build.launch(
+            _LAUNCH, q.get_device(), what, q.data_ptr(), t.data_ptr(), B, Lq, Lt,
+            params.match, params.mismatch, params.gap_open, params.gap_extend,
+            int(no_n), int(plan.pack), plan.rows_per_lane, plan.blocks, plan.threads,
+            header, bnd, score.data_ptr(), q_end.data_ptr(), t_end.data_ptr(),
+        )
+    LAUNCHES_BY_FORM[plan.form] += 1
     LAUNCHES += 1
     return score, q_end, t_end
 

@@ -22,11 +22,13 @@ It compares score, q_end and t_end of ``sw_score_cuda`` with plain
     R = 4 and 8, N runs sit on those boundaries, and one row is
     tie-heavy.
 
-Each case runs under the automatic launch plan and at every R
-(``sw_cuda.ROWS_PER_LANE``), packed and unpacked. ``--out`` writes the
-record ``AGREEMENT_r05.json`` holds (``case``, ``paths``, ``checks``,
-``pass``, ``mismatches``, ``agreement``), with ``"backend": "cuda"`` and
-the card's name. ``--device cpu`` holds the plain version against
+Each case runs under the automatic launch plan and at every R of both
+launch forms (``sw_cuda.ROWS_PER_LANE``, the ticket form's, and
+``sw_cuda.BLOCK_ROWS_PER_LANE``, the block form's, whose strips of 64
+rows end on the ticket form's boundaries too), packed and unpacked.
+``--out`` writes the record ``AGREEMENT_r05.json`` holds (``case``,
+``paths``, ``checks``, ``pass``, ``mismatches``, ``agreement``), with
+``"backend": "cuda"`` and the card's name. ``--device cpu`` holds the plain version against
 itself, a rehearsal of the tool's plumbing with no kernel in it.
 """
 
@@ -109,14 +111,15 @@ def build_cases(rng):
 
 def kernel_forms(device: torch.device) -> list:
     """[(label, rows_per_lane, unpacked)]: the launch plan's own and every
-    R packed and unpacked on a card; the plain version alone on the CPU."""
+    R of both forms packed and unpacked on a card; the plain version alone
+    on the CPU."""
     if device.type != "cuda":
         return [("plain", None, False)]
-    from breakmer_tpu_torch.ops.sw_cuda import ROWS_PER_LANE
+    from breakmer_tpu_torch.ops.sw_cuda import BLOCK_ROWS_PER_LANE, ROWS_PER_LANE
 
     return [("auto", None, False)] + [
         (f"R{R}{' unpacked' if unpacked else ''}", R, unpacked)
-        for R in ROWS_PER_LANE for unpacked in (False, True)]
+        for R in ROWS_PER_LANE + BLOCK_ROWS_PER_LANE for unpacked in (False, True)]
 
 
 def _score(q, t, params, no_n, rows_per_lane, unpacked):

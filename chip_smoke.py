@@ -9,9 +9,13 @@ phase's wall time is printed):
   3. the SW kernel against the plain torch version on the card, bit-exact
      at the shapes realign produces, with no_n off and on, ~1% N and
      custom scoring (one set past the packed row key's range), at the
-     launch plan's rows a lane and at each one forced, packed and
-     unpacked; median of 5 CUDA-event timings of each, with GCUPS, the
-     bound and the share of it the kernel reaches;
+     launch plan's form and rows a lane and at each R of both forms
+     (ticket: 4, 8; block: 2) forced, packed and unpacked; median of 5
+     CUDA-event timings of each, with GCUPS, the bound and the share of it
+     the kernel reaches; the serial path's largest shapes (1x256x512,
+     1x256x1024, 12x512x1024) in both forms, exact, then timed in turns;
+     the step-cost table behind the plan's clock model; one pair at each
+     of realign's pad tiers at every R of both forms;
   4. the k-mer engine on the card against the CPU (2,000 x 150 bp reads,
      3 kb region, matched normal); then each of the four k-mer kernels
      (csrc/kmer.cu) and the both-strand form of revcomp_kmers against its
@@ -31,9 +35,12 @@ phase's wall time is printed):
      byte-identical, no region may fail, every SW batch of the card run
      must have launched the kernel, every k-mer kernel must have
      launched, kmer_codes at least twice a region that reached the k-mer
-     stage (three times with a normal); a second card run records the SW
-     launches by shape, each replayed for its kernel time beside its
-     bound (the timed run records nothing);
+     stage (three times with a normal), and at least one SW launch must
+     have taken the block form (1x256x512 and 1x256x1024 every time),
+     each counted under the form its plan chose; a second card run
+     records the SW launches by shape, each replayed for its kernel time
+     in its own form and in the ticket form, in turns, beside its bound
+     (the timed run records nothing);
   7. the probe kernels against their plain versions on the card, exact:
      the stripped SW loop in both forms at steps 1, 7, 255 and the
      default, every int16 op of both int16 probes, the running max; each
@@ -49,8 +56,9 @@ phase's wall time is printed):
      32 regions a packed k-mer launch) on the card, nprocs 1 (cold, then
      warm) and 4: svs.out and the VCF byte-identical to phase 6's serial
      output, no region error, every SW batch launched the kernel, every
-     k-mer kernel launched; then a
-     recorded warm run gives the SW launches by shape as in phase 6;
+     k-mer kernel launched, the SW launches counted by form; then a
+     recorded warm run gives the SW launches by shape and form as in
+     phase 6;
   9. the k-mer batch step on the card against the CPU, exact, full and
      packed, at 32 regions of 512 reads with a matched normal; both
      timed with their fetch;
@@ -78,7 +86,7 @@ phase's wall time is printed):
      process 0's merged svs.out and VCF are byte-identical to phase 6's;
  17. the tools: gpu_agreement in full (the SW kernel against the plain
      version on the pad-tier and strip-boundary cases, every launch
-     form): 0 mismatches, one SW launch a case, path and form;
+     form and R): 0 mismatches, one SW launch a case, path and form;
  18. sweep_accuracy --genome repeats --seeds 8 --fp 4 on the card and on
      the CPU: the two records equal apart from wall_s;
  19. probe_fetch: one fetch of n buffers against n fetches, pageable and
@@ -129,6 +137,9 @@ WORK = ROOT / "build" / "chip_smoke"
 SW_SHAPES = [(512, 256, 512), (301, 128, 256), (37, 1024, 2048), (16, 1024, 6144),
              (8, 3072, 2048), (64, 512, 16384), (2, 10240, 2048)]
 HEADLINE = (512, 256, 512)
+# the serial path's two largest launch shapes and its widest, each run in
+# both forms of the SW kernel in turns
+SW_FORM_SHAPES = [(1, 256, 512), (1, 256, 1024), (12, 512, 1024)]
 CI_KINDS = {1: ["ins", "del", "dup", None], 7: ["inv", "trl", None, None]}
 OUTPUTS = ("prop_svs.out", "prop.vcf")
 
@@ -224,7 +235,9 @@ def phase_sw(dev, card):
         q, t = (torch.from_numpy(a).to(dev) for a in sw_inputs(rng, B, Lq, Lt))
         ref = sw_score(q, t)
         by_r = {}  # device ms at each rows-a-lane, after an exact check
-        for R in sw_cuda.ROWS_PER_LANE:
+        for R in sw_cuda.ROWS_PER_LANE + sw_cuda.BLOCK_ROWS_PER_LANE:
+            if not sw_cuda._fits(R, Lq, Lt):
+                continue
             for unpacked in (False, True):
                 err = sw_max_err(ref, sw_cuda.sw_score_cuda(q, t, no_n=True, rows_per_lane=R,
                                                             unpacked=unpacked))
@@ -245,26 +258,111 @@ def phase_sw(dev, card):
         b_ms, b_by = sw_bound(B, Lq, Lt)
         rows.append(dict(shape=[B, Lq, Lt], ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
                          profiler_device_ms=prof_ms if (B, Lq, Lt) == HEADLINE else None,
-                         bound_ms=b_ms, bound_by=b_by, rows_per_lane=plan.rows_per_lane,
+                         bound_ms=b_ms, bound_by=b_by, form=plan.form,
+                         rows_per_lane=plan.rows_per_lane,
                          strips=plan.strips, device_ms_by_rows_per_lane=by_r,
                          gcups=cells / k_ms / 1e6, plain_gcups=cells / p_ms / 1e6))
         print(f"  SW {B}x{Lq}x{Lt}: exact; kernel {k_ms:.4f} ms a call, {d_ms:.4f} ms "
-              f"on the device ({cells / k_ms / 1e6:.2f} GCUPS a call; R={plan.rows_per_lane}, "
+              f"on the device ({cells / k_ms / 1e6:.2f} GCUPS a call; {plan.form} "
+              f"form, R={plan.rows_per_lane}, "
               f"{plan.strips} strips, {plan.warps} warps), bound {b_ms:.4f} ms "
               f"({b_by}), {b_ms / d_ms:.1%} of the bound on the device; device ms by R "
               + ", ".join(f"{R}: {ms:.4f}" for R, ms in by_r.items())
               + f"; plain {p_ms:.2f} ms ({cells / p_ms / 1e6:.4f} GCUPS) [{card}]",
               flush=True)
-    sw_step_costs(dev, card)
+    turns = sw_form_turns(dev, card, rng)
+    max_err = max([max_err] + [r["max_abs_err"] for r in turns])
+    step_cycles = sw_step_costs(dev, card)
+    tiers = sw_tier_grid(dev, card, rng)
     torch.cuda.synchronize()
-    return rows, max_err
+    return rows, max_err, dict(form_turns=turns, step_cycles=step_cycles, tier_grid=tiers)
+
+
+def sw_tier_grid(dev, card, rng):
+    """One pair at each of realign's pad tiers (Lq 128-1024 x Lt
+    256-2048; a serial launch's pairs each take an SM, so one pair times
+    1-12): device ms at every R of both forms, beside the R the plan picks
+    and the R the ticket form alone would pick (the plan before the block
+    form existed)."""
+    from breakmer_tpu_torch.ops import sw_cuda
+    from breakmer_tpu_torch.timing import queued_ms
+
+    rows = []
+    for Lq in (128, 256, 512, 1024):
+        for Lt in (256, 512, 1024, 2048):
+            q, t = (torch.from_numpy(a).to(dev) for a in sw_inputs(rng, 1, Lq, Lt))
+            ms = {R: queued_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True, rows_per_lane=R),
+                               n=10)
+                  for R in sw_cuda.ROWS_PER_LANE + sw_cuda.BLOCK_ROWS_PER_LANE}
+            plan = sw_cuda.launch_plan(1, Lq, Lt, sms=_PEAK["sms"]).rows_per_lane
+            ticket = sw_cuda._rows_per_lane(1, Lq, Lt, _PEAK["sms"])
+            rows.append(dict(shape=[1, Lq, Lt], device_ms_by_rows_per_lane=ms, plan=plan,
+                             ticket=ticket))
+            print(f"  SW tier 1x{Lq}x{Lt}: device ms by R "
+                  + ", ".join(f"{R}: {x:.4f}" for R, x in ms.items())
+                  + f"; plan R={plan} ({ms[plan] / ms[ticket]:.3f}x the ticket form's R={ticket}),"
+                  f" fastest R={min(ms, key=ms.get)} [{card}]", flush=True)
+    return rows
+
+
+def sw_form_turns(dev, card, rng):
+    """SW_FORM_SHAPES in both forms of the kernel (each form at the R the
+    plan picks within it), exact against the plain version (no_n off and
+    on, packed and unpacked), then timed in turns (block, ticket, ticket,
+    block): device ms of queued calls and ms a call (CUDA events)."""
+    from breakmer_tpu_torch.ops import sw_cuda
+    from breakmer_tpu_torch.ops.sw import sw_score
+    from breakmer_tpu_torch.timing import cuda_ms, queued_ms
+
+    rows = []
+    for B, Lq, Lt in SW_FORM_SHAPES:
+        q, t = (torch.from_numpy(a).to(dev) for a in sw_inputs(rng, B, Lq, Lt))
+        ref = sw_score(q, t)
+        # each form at the R its clock model picks within it
+        rows_of = {form: sw_cuda._rows_per_lane(B, Lq, Lt, _PEAK["sms"], rs)
+                   for form, rs in sw_cuda.FORMS.items()}
+        err = 0
+        for R in rows_of.values():
+            for no_n in (False, True):
+                for unpacked in (False, True):
+                    err = max(err, sw_max_err(ref, sw_cuda.sw_score_cuda(
+                        q, t, no_n=no_n, unpacked=unpacked, rows_per_lane=R)))
+        check(err == 0, f"SW kernel forms != plain at {(B, Lq, Lt)}")
+        dev_ms = {form: [] for form in sw_cuda.FORMS}
+        call_ms = {form: [] for form in sw_cuda.FORMS}
+        for form in ("block", "ticket", "ticket", "block"):
+            run = lambda: sw_cuda.sw_score_cuda(  # noqa: E731
+                q, t, no_n=True, rows_per_lane=rows_of[form])
+            dev_ms[form].append(queued_ms(run, n=10))
+            call_ms[form].append(cuda_ms(run))
+        b_ms, b_by = sw_bound(B, Lq, Lt)
+        plan = sw_cuda.launch_plan(B, Lq, Lt, sms=_PEAK["sms"])
+        forms = {form: dict(rows_per_lane=rows_of[form],
+                            device_ms=dev_ms[form], ms=call_ms[form],
+                            bound_share=b_ms / min(dev_ms[form]))
+                 for form in sw_cuda.FORMS}
+        rows.append(dict(shape=[B, Lq, Lt], plan_form=plan.form, max_abs_err=err,
+                         bound_ms=b_ms, bound_by=b_by, forms=forms))
+        print(f"  SW forms {B}x{Lq}x{Lt}: exact; plan takes {plan.form} R={plan.rows_per_lane}; "
+              + "; ".join(f"{form} R={r['rows_per_lane']}: device "
+                          + ", ".join(f"{x:.4f}" for x in r["device_ms"]) + " ms, a call "
+                          + ", ".join(f"{x:.4f}" for x in r["ms"])
+                          + f" ms, {r['bound_share']:.1%} of the bound"
+                          for form, r in forms.items())
+              + f"; bound {b_ms:.4f} ms ({b_by}) [{card}]", flush=True)
+    return rows
 
 
 def sw_step_costs(dev, card):
-    """The table behind ops/sw_cuda.py's STEP_CYCLES (the lag included):
-    clocks a step of one strip of 32 R x 4096 with 1, 2 and 4 warps a SM
-    partition, and the steps one pair of 8 strips over 2048 columns takes
-    past one strip, a strip (device time of queued launches)."""
+    """The table behind ops/sw_cuda.py's STEP_CYCLES (device time of queued
+    launches). Ticket form, at each R: clocks a step of one strip of
+    32 R x 4096 with 1, 2 and 4 warps a SM partition, and the steps one
+    pair of 8 strips over 2048 columns takes past one strip, a strip.
+    Block form, at each R: clocks a column of one pair of 4 strips (a warp
+    a partition) and of 16 strips (their slope from 512 to 2048 columns;
+    a warp's share is a quarter of the latter), and the steps each strip
+    after the first adds at 4 strips over 512 columns. Returns {R: (alone,
+    shared, lag)}."""
     from breakmer_tpu_torch.ops import sw_cuda
     from breakmer_tpu_torch.timing import queued_ms
 
@@ -272,37 +370,62 @@ def sw_step_costs(dev, card):
     hz = _PEAK["mhz"] * 1e6
     codes = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.integers(0, 4, shape).astype(np.int8)).to(dev)
+    table = {}
     for R in sw_cuda.ROWS_PER_LANE:
-        cells = []
+        cells = {}
         for w in (1, 2, 4):
             B, Lt = 4 * _PEAK["sms"] * w, 4096
             q, t = codes(B, 32 * R), codes(B, Lt)
             ms = queued_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True, rows_per_lane=R), 5)
-            cells.append(f"{w}/partition {ms * 1e-3 * hz / (Lt + 31) / w:.0f}")
+            cells[w] = ms * 1e-3 * hz / (Lt + 31) / w
         steps = {}
         for S in (1, 8):
             q, t = codes(1, 32 * R * S), codes(1, 2048)
             ms = queued_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True, rows_per_lane=R), 5)
             steps[S] = ms * 1e-3 * hz
         lag = (steps[8] / steps[1] - 1) * (2048 + 31) / 7
-        print(f"  SW step clocks a warp, R={R}: " + ", ".join(cells)
+        table[R] = (cells[1], cells[4], lag)
+        print(f"  SW step clocks a warp, R={R} (ticket form): "
+              + ", ".join(f"{w}/partition {c:.0f}" for w, c in cells.items())
               + f"; strip lag {lag:.0f} steps [{card}]", flush=True)
+    for R in sw_cuda.BLOCK_ROWS_PER_LANE:
+        clocks = {}
+        for S in (4, 16):
+            for Lt in (512, 2048):
+                q, t = codes(1, 32 * R * S), codes(1, Lt)
+                clocks[S, Lt] = queued_ms(lambda: sw_cuda.sw_score_cuda(
+                    q, t, no_n=True, rows_per_lane=R), 5) * 1e-3 * hz
+        column = {S: (clocks[S, 2048] - clocks[S, 512]) / 1536 for S in (4, 16)}
+        lag = (clocks[4, 512] / column[4] - (512 + 31)) / 3
+        table[R] = (column[4], column[16] / 4, lag)
+        print(f"  SW column clocks, R={R} (block form): 4 strips {column[4]:.0f}, 16 strips "
+              f"{column[16]:.0f} ({column[16] / 4:.0f} a warp); strip lag {lag:.0f} steps "
+              f"[{card}]", flush=True)
+    return table
 
 
 class SWRecorder:
     """While open, records the inputs of every ``sw_score_cuda`` call (the
-    main path's SW launches; the wrapper still counts its own launches);
-    ``by_shape`` then replays each call for its device time (queued CUDA
-    events, ``timing.queued_ms``), summed by (B, Lq, Lt)."""
+    main path's SW launches; the wrapper still counts its own launches)
+    and the form each launched in; ``by_shape`` then replays each call in
+    that form and in the ticket form (the form every launch took before
+    the block form existed, at the R its plan picks), in turns, for their
+    device time (queued CUDA events, ``timing.queued_ms``), summed by
+    (B, Lq, Lt), after holding the two forms' outputs equal (and the
+    plain version's, at each shape's first call)."""
 
     def __enter__(self):
         from breakmer_tpu_torch.ops import sw_cuda
 
-        self.mod, self.orig, self.calls = sw_cuda, sw_cuda.sw_score_cuda, []
+        self.mod, self.orig, self.calls, self.forms = sw_cuda, sw_cuda.sw_score_cuda, [], []
 
         def record(q, t, *args, **kwargs):
             self.calls.append((q.clone(), t.clone(), args, kwargs))
-            return self.orig(q, t, *args, **kwargs)
+            before = dict(sw_cuda.LAUNCHES_BY_FORM)
+            out = self.orig(q, t, *args, **kwargs)
+            self.forms.append(next(f for f, n in sw_cuda.LAUNCHES_BY_FORM.items()
+                                   if n != before[f]))
+            return out
 
         sw_cuda.sw_score_cuda = record
         return self
@@ -310,22 +433,52 @@ class SWRecorder:
     def __exit__(self, *exc):
         self.mod.sw_score_cuda = self.orig
 
+    def form_counts(self) -> dict:
+        return {f: self.forms.count(f) for f in self.mod.FORMS}
+
     def by_shape(self, label, card):
+        from breakmer_tpu_torch.ops.sw import sw_score
         from breakmer_tpu_torch.timing import queued_ms
 
-        before = self.mod.LAUNCHES
+        before = self.mod.LAUNCHES, dict(self.mod.LAUNCHES_BY_FORM)
         out = {}
-        for q, t, args, kwargs in self.calls:
+        for n, ((q, t, args, kwargs), form) in enumerate(zip(self.calls, self.forms)):
             shape = (q.shape[0], q.shape[1], t.shape[1])
-            row = out.setdefault(shape, dict(launches=0, ms=0.0, bound_ms=0.0))
+            row = out.get(shape)
+            if row is None:
+                row = out[shape] = dict(launches=0, forms={f: 0 for f in self.mod.FORMS},
+                                        ms=0.0, ticket_ms=0.0, bound_ms=0.0)
+                want = sw_score(q, t, *args[:1], **{k: v for k, v in kwargs.items()
+                                                    if k == "params"})
+                check(sw_max_err(want, self.orig(q, t, *args, **kwargs)) == 0,
+                      f"{label}: SW replay != plain at {shape}")
             row["launches"] += 1
-            row["ms"] += queued_ms(lambda: self.orig(q, t, *args, **kwargs), n=3)
+            row["forms"][form] += 1
+            ticket = self.mod._rows_per_lane(*shape, self.mod._sms(q.device))
+            runs = {"plan": lambda: self.orig(q, t, *args, **kwargs),
+                    "ticket": lambda: self.orig(q, t, *args,
+                                                **{**kwargs, "rows_per_lane": ticket})}
+            check(sw_max_err(runs["plan"](), runs["ticket"]()) == 0,
+                  f"{label}: SW forms differ at call {n} {shape}")
+            for key in (("plan", "ticket") if n % 2 == 0 else ("ticket", "plan")):
+                ms = queued_ms(runs[key], n=3)
+                row["ms" if key == "plan" else "ticket_ms"] += ms
             row["bound_ms"] += sw_bound(*shape)[0]
-        self.mod.LAUNCHES = before  # replays are no launches of the main path
+        # replays are no launches of the main path
+        self.mod.LAUNCHES = before[0]
+        self.mod.LAUNCHES_BY_FORM.update(before[1])
         for (B, Lq, Lt), r in sorted(out.items()):
-            print(f"  {label} SW launches {B}x{Lq}x{Lt}: {r['launches']}, kernel "
-                  f"{r['ms']:.4f} ms summed, bound {r['bound_ms']:.4f} ms, launches x "
-                  f"(time - bound) {r['ms'] - r['bound_ms']:.4f} ms [{card}]", flush=True)
+            print(f"  {label} SW launches {B}x{Lq}x{Lt}: {r['launches']} ("
+                  + ", ".join(f"{f} {c}" for f, c in r["forms"].items() if c)
+                  + f"), kernel {r['ms']:.4f} ms summed (ticket form {r['ticket_ms']:.4f}), "
+                  f"bound {r['bound_ms']:.4f} ms, launches x (time - bound) "
+                  f"{r['ms'] - r['bound_ms']:.4f} ms [{card}]", flush=True)
+        total = {k: sum(r[k] for r in out.values()) for k in ("ms", "ticket_ms", "bound_ms")}
+        print(f"  {label} SW replay: {len(self.calls)} launches over {len(out)} shapes ("
+              + ", ".join(f"{f} {c}" for f, c in self.form_counts().items())
+              + f"): {total['ms']:.4f} ms as planned, {total['ticket_ms']:.4f} ms in the "
+              f"ticket form ({total['ms'] / total['ticket_ms']:.3f}x), bound "
+              f"{total['bound_ms']:.4f} ms [{card}]", flush=True)
         return [dict(shape=list(k), **v) for k, v in sorted(out.items())]
 
 
@@ -785,13 +938,17 @@ def phase_slice_scale(card, panel):
     cfg_kwargs = {**cfg_kwargs, "batch_regions": False}
     with KmerCalls() as kmer_calls:  # every k-mer kernel's count is 0 here
         sw_cuda.LAUNCHES = 0  # main path starts here
+        sw_cuda.LAUNCHES_BY_FORM.update(ticket=0, block=0)
         events, metrics, setup_s, run_s, _ = run_panel(cfg_kwargs, work / "cuda", "cuda")
         launches = sw_cuda.LAUNCHES
+        by_form = dict(sw_cuda.LAUNCHES_BY_FORM)
     kmer_launches = kmer_calls.check("panel100 serial", serial=True)
     sw_batches = METER.sw_launches
     check(launches > 0, "main path launched the SW kernel no time")
     check(launches == sw_batches,
           f"SW kernel launches {launches} != sw_score_batch calls {sw_batches}")
+    check(sum(by_form.values()) == launches, f"SW launches by form {by_form} != {launches}")
+    check(by_form["block"] > 0, "no serial SW launch took the block form")
     _, _, _, cpu_s, _ = run_panel(cfg_kwargs, work / "cpu", "cpu")
     for name in OUTPUTS:
         a = (work / "cuda" / "output" / name).read_bytes()
@@ -816,7 +973,15 @@ def phase_slice_scale(card, panel):
     print(f"  panel100 CUDA stage seconds: {stages}", flush=True)
     with SWRecorder() as rec:  # an untimed run for the launches by shape
         run_panel(cfg_kwargs, work / "cuda_recorded", "cuda")
-    check(len(rec.calls) == launches, "the recorded serial run launched SW differently")
+    check(len(rec.calls) == launches and rec.form_counts() == by_form,
+          f"the recorded serial run launched SW differently: {rec.form_counts()}, {by_form}")
+    for (q, t, _, _), form in zip(rec.calls, rec.forms):  # the planned forms
+        shape = (q.shape[0], q.shape[1], t.shape[1])
+        check(form == sw_cuda.launch_plan(*shape, sms=sw_cuda._sms(q.device)).form,
+              f"serial SW launch {shape} counted under {form}")
+        check(shape not in {(1, 256, 512), (1, 256, 1024)} or form == "block",
+              f"serial SW launch {shape} took the {form} form")
+    print(f"  panel100 serial SW launches by form: {by_form} [{card}]", flush=True)
     by_shape = rec.by_shape("panel100 serial", card)
     torch.cuda.synchronize()
     return launches, by_shape, kmer_launches
@@ -833,14 +998,16 @@ def phase_batched_panel(card, panel, serial_sw_batches):
 
     cfg_kwargs, _, work = panel
     serial = {name: (work / "cuda" / "output" / name).read_bytes() for name in OUTPUTS}
-    warm_launches, warm_rate, kmer_launches = 0, 0.0, {}
+    warm_launches, warm_rate, kmer_launches, warm_by_form = 0, 0.0, {}, {}
     for label, nprocs in (("cold", 1), ("warm", 1), ("nprocs4", 4)):
         kw = {**cfg_kwargs, "batch_regions": True, "nprocs": nprocs}
         out = work / f"batched_{label}"
         with KmerCalls() as kmer_calls:
             sw_cuda.LAUNCHES = 0  # this run of the batched path starts here
+            sw_cuda.LAUNCHES_BY_FORM.update(ticket=0, block=0)
             events, metrics, setup_s, run_s, runner = run_panel(kw, out, "cuda")
             launches = sw_cuda.LAUNCHES
+            by_form = dict(sw_cuda.LAUNCHES_BY_FORM)
         kmer_calls.check(f"batched {label}", serial=False)
         sw_batches = METER.sw_launches
         check(launches > 0, f"batched {label}: the SW kernel launched no time")
@@ -858,15 +1025,17 @@ def phase_batched_panel(card, panel, serial_sw_batches):
               f"{run_s:.4f} s (setup {setup_s:.2f} s): {n_regions / run_s:.2f} regions/s, "
               f"{n_reads / run_s:.1f} reads/s; stage s {stages}; {kb.dispatched} packed "
               f"k-mer launches, {kb.refetched} overflow refetches; SW {sw_batches} batches "
-              f"(serial run: {serial_sw_batches}), {metrics['sw']['cells']} cells; "
+              f"(serial run: {serial_sw_batches}; by form {by_form}), "
+              f"{metrics['sw']['cells']} cells; "
               f"svs.out and VCF == serial [{card}]", flush=True)
         if label == "warm":
-            warm_launches, warm_rate = launches, n_regions / run_s
+            warm_launches, warm_rate, warm_by_form = launches, n_regions / run_s, by_form
             kmer_launches = kmer_calls.launches
     kw = {**cfg_kwargs, "batch_regions": True, "nprocs": 1}
     with SWRecorder() as rec:  # an untimed warm run for the launches by shape
         run_panel(kw, work / "batched_recorded", "cuda")
-    check(len(rec.calls) == warm_launches, "the recorded batched run launched SW differently")
+    check(len(rec.calls) == warm_launches and rec.form_counts() == warm_by_form,
+          "the recorded batched run launched SW differently")
     by_shape = rec.by_shape("batched panel100 warm", card)
     torch.cuda.synchronize()
     return warm_launches, by_shape, warm_rate, kmer_launches
@@ -1742,6 +1911,7 @@ def zero_launches() -> None:
     from breakmer_tpu_torch.ops import kmer_cuda, sw_cuda
 
     sw_cuda.LAUNCHES = 0
+    sw_cuda.LAUNCHES_BY_FORM.update(ticket=0, block=0)
     for name in kmer_cuda.LAUNCHES:
         kmer_cuda.LAUNCHES[name] = 0
 
@@ -1868,7 +2038,7 @@ def main() -> int:
           flush=True)
     _build.library()
 
-    sw_rows, sw_err = timed("sw", phase_sw, dev, card)
+    sw_rows, sw_err, sw_forms = timed("sw", phase_sw, dev, card)
     kmer_rows, kmer_call = timed("kmer", phase_kmer, dev, card)
     timed("slice seeds 1, 7", phase_slice_exact, card)
     panel = build_panel100()
@@ -1904,7 +2074,7 @@ def main() -> int:
                                 multihost_launches=multihost_launches,
                                 agreement_launches=agreement_launches,
                                 main_path_by_shape=serial_by_shape,
-                                batched_path_by_shape=batched_by_shape)
+                                batched_path_by_shape=batched_by_shape, **sw_forms)
     launches["sw_wavefront"] = sw_launches
     for name, row in kmer_rows.items():
         rows[name] = dict(row, batched_path_launches=kmer_batched[name])
@@ -1935,6 +2105,7 @@ def main() -> int:
                                              "multihost_launches", "agreement_launches",
                                              "graft_entry_launches",
                                              "main_path_by_shape", "batched_path_by_shape",
+                                             "form_turns", "step_cycles", "tier_grid",
                                              "contig_device_ms", "bound_share", "batch_step",
                                              "form", "alone", "sample_only_kmers_call")
                          if k in row}})

@@ -43,15 +43,18 @@ def _codes(rng, B, Lq, Lt, n_rate=0.0, pattern=None):
 _EDGES = [(3, 32 * R + dq, 300) for R in sw_cuda.ROWS_PER_LANE for dq in (-1, 0, 1)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,Lq,Lt,pattern", [
+_PLAIN_CASES = [
     (37, 128, 256, None), (5, 1024, 2048, None), (3, 300, 40, None), (2, 10240, 512, None),
     *[(B, Lq, Lt, None) for B, Lq, Lt in _EDGES],            # strip edges, every R
     (4, 1, 50, None), (4, 50, 1, None), (2, 1, 1, None), (5, 20, 64, None),  # Lq, Lt tiny
     (1, 256, 512, None), (131, 256, 512, None), (133, 256, 512, None),  # B across the SMs
     (9, 200, 333, (0, 1)), (9, 300, 200, (0,)), (7, 600, 700, (0, 1, 2)),  # ties
     (2, 10240, 2048, None),                                  # a long query, many strips
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lt,pattern", _PLAIN_CASES)
 def test_kernel_matches_plain(card, B, Lq, Lt, pattern):
     """Every case at the plan's own R and at each R forced, with the row
     best packed as the plan has it and forced unpacked, exact."""
@@ -94,6 +97,100 @@ def test_kernel_matches_plain_past_the_packed_key(card, B, Lq, Lt, pattern):
             got = sw_cuda.sw_score_cuda(q, t, params, no_n=no_n, rows_per_lane=R)
             for name, a, b in zip(("score", "q_end", "t_end"), ref, got):
                 assert torch.equal(a, b), f"{name} no_n={no_n} {params} R={R}"
+
+
+_BLOCK_EDGES = [(3, 32 * R + dq, 300) for R in sw_cuda.BLOCK_ROWS_PER_LANE
+                for dq in (-1, 0, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lt,pattern", _PLAIN_CASES + [
+    *[(B, Lq, Lt, None) for B, Lq, Lt in _BLOCK_EDGES],      # the block form's strip edges
+    (2, 1024, 777, None), (3, 1983, 512, None), (2, 2048, 300, None),  # 16-32 strips a block
+    (1, 1, 1, None), (3, 1, 700, None), (3, 700, 1, None),   # Lq or Lt of 1
+    (1, 512, 1024, None), (12, 512, 1024, None), (12, 1024, 2048, None),  # serial shapes
+    (12, 256, 512, (0, 1)), (1, 1024, 2048, (0,)),           # ties
+])
+def test_block_form_matches_plain(card, B, Lq, Lt, pattern):
+    """The block form (R = 2, up to Lq = 2048), packed as the plan has it
+    and forced unpacked, exact, on the cases of test_kernel_matches_plain
+    and the form's own; where it cannot take the shape, forcing it raises
+    before any launch."""
+    rng = np.random.default_rng(Lq + Lt + 1)
+    cases = [(False, 0.01, SWParams()), (True, 0.0, SWParams()),
+             (True, 0.0, SWParams(3, 2, 4, 2)), (False, 0.0, SWParams(2, 0, 5, 1))]
+    for no_n, n_rate, params in cases:
+        q, t = (torch.from_numpy(a).to(card)
+                for a in _codes(rng, B, Lq, Lt, n_rate, pattern))
+        ref = sw_score(q, t, params)
+        for R in sw_cuda.BLOCK_ROWS_PER_LANE:
+            for unpacked in (False, True):
+                before = dict(sw_cuda.LAUNCHES_BY_FORM, all=sw_cuda.LAUNCHES)
+                if -(-Lq // (32 * R)) > 32:
+                    with pytest.raises(ValueError):
+                        sw_cuda.sw_score_cuda(q, t, params, no_n=no_n, rows_per_lane=R)
+                    assert dict(sw_cuda.LAUNCHES_BY_FORM, all=sw_cuda.LAUNCHES) == before
+                    continue
+                got = sw_cuda.sw_score_cuda(q, t, params, no_n=no_n, rows_per_lane=R,
+                                            unpacked=unpacked)
+                torch.cuda.synchronize()
+                assert sw_cuda.LAUNCHES == before["all"] + 1
+                assert sw_cuda.LAUNCHES_BY_FORM["block"] == before["block"] + 1
+                for name, a, b in zip(("score", "q_end", "t_end"), ref, got):
+                    assert torch.equal(a, b), \
+                        f"{name} no_n={no_n} {params} R={R} unpacked={unpacked}"
+        if pattern is not None:
+            assert int(ref[0].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lt,pattern", [
+    (3, 2048, 2048, None), (3, 2048, 2048, (0, 1)), (2, 1024, 2500, (0,)),
+])
+def test_block_form_past_the_packed_key(card, B, Lq, Lt, pattern):
+    """Best scores of 2^15 and more in the block form, where the plan
+    itself unpacks: exact, ties included."""
+    rng = np.random.default_rng(Lq * Lt + 1)
+    for no_n, params in ((False, SWParams(40, 30, 50, 20)), (True, SWParams(40, 30, 50, 20)),
+                         (False, SWParams(48, 0, 60, 10))):
+        q, t = (torch.from_numpy(a).to(card) for a in _codes(rng, B, Lq, Lt, 0.0, pattern))
+        ref = sw_score(q, t, params)
+        assert int(ref[0].max()) >= 2 ** 15
+        for R in sw_cuda.BLOCK_ROWS_PER_LANE:
+            if -(-Lq // (32 * R)) > 32:
+                continue
+            assert not sw_cuda.launch_plan(B, Lq, Lt, R, match=params.match).pack
+            got = sw_cuda.sw_score_cuda(q, t, params, no_n=no_n, rows_per_lane=R)
+            for name, a, b in zip(("score", "q_end", "t_end"), ref, got):
+                assert torch.equal(a, b), f"{name} no_n={no_n} {params} R={R}"
+
+
+@pytest.mark.cuda
+def test_forcing_a_form_the_shape_cannot_take_raises_before_any_launch(card):
+    q = torch.zeros((2, 2049), dtype=torch.int8, device=card)
+    t = torch.zeros((2, 300), dtype=torch.int8, device=card)
+    before = dict(sw_cuda.LAUNCHES_BY_FORM, all=sw_cuda.LAUNCHES)
+    for R in (1, 2, 3):  # 33 strips of 64 rows; R of no form
+        with pytest.raises(ValueError):
+            sw_cuda.sw_score_cuda(q, t, rows_per_lane=R)
+    torch.cuda.synchronize()
+    assert dict(sw_cuda.LAUNCHES_BY_FORM, all=sw_cuda.LAUNCHES) == before
+    sw_cuda.sw_score_cuda(q, t)  # the plan takes the ticket form
+    assert sw_cuda.LAUNCHES_BY_FORM["ticket"] == before["ticket"] + 1
+
+
+@pytest.mark.cuda
+def test_serial_shapes_launch_the_block_form(card):
+    """A launch of realign's serial path (few pairs) takes the block form
+    under the plan and is counted under it."""
+    rng = np.random.default_rng(13)
+    for B, Lq, Lt in ((1, 256, 512), (1, 256, 1024), (12, 512, 1024)):
+        q, t = (torch.from_numpy(a).to(card) for a in _codes(rng, B, Lq, Lt))
+        before = dict(sw_cuda.LAUNCHES_BY_FORM)
+        got = sw_cuda.sw_score_cuda(q, t, no_n=True)
+        assert sw_cuda.LAUNCHES_BY_FORM == dict(before, block=before["block"] + 1)
+        for a, b in zip(sw_score(q, t), got):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

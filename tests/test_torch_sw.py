@@ -119,6 +119,10 @@ _LT_TIERS = [256, 512, 1024] + [2048 * k for k in range(1, 9)]
 
 def _assert_legal(plan, B, Lq, Lt):
     R, S = plan.rows_per_lane, plan.strips
+    if plan.form == "block":
+        _assert_legal_block(plan, B, Lq, Lt)
+        return
+    assert plan.form == "ticket"
     assert R in sw_cuda.ROWS_PER_LANE
     assert plan.threads % 32 == 0 and 0 < plan.threads <= 1024
     assert plan.smem_bytes <= 227 * 1024
@@ -133,6 +137,24 @@ def _assert_legal(plan, B, Lq, Lt):
     header = 1 + B + 3 * B * S if S > 1 else 0
     assert plan.header_ints == header
     assert plan.scratch_ints == -(-header // 4) * 4 + 4 * B * (S - 1) * Lt
+    assert plan.pack == (2 * min(Lq, Lt) < 2 ** 15 and Lt <= 2 ** 16)
+
+
+def _assert_legal_block(plan, B, Lq, Lt):
+    """The block form: block b is pair b and its warp k strip k."""
+    R, S = plan.rows_per_lane, plan.strips
+    assert R in sw_cuda.BLOCK_ROWS_PER_LANE
+    # one block a pair, one warp a strip, at most 1024 threads a block
+    assert plan.blocks == B and plan.warps == B * S
+    assert plan.threads == 32 * S and 0 < plan.threads <= 1024
+    # the strips cover rows 0 .. Lq - 1 once, none of them empty
+    assert 32 * R * (S - 1) < Lq <= 32 * R * S
+    # no scratch: the strips hand their rows down through shared memory
+    assert plan.header_ints == plan.scratch_ints == 0
+    ring = 8 * sw_cuda.RING * (S - 1) + 8 * (S - 1) + 12 * S
+    target = sw_cuda.TPAD + Lt + sw_cuda.TTAIL
+    assert plan.smem_bytes == -(-ring // 16) * 16 + -(-target // 16) * 16
+    assert plan.smem_bytes <= 227 * 1024
     assert plan.pack == (2 * min(Lq, Lt) < 2 ** 15 and Lt <= 2 ** 16)
 
 
@@ -175,3 +197,77 @@ def test_launch_plan_picks_rows_a_lane_by_its_estimate():
     for shape, R in picks.items():
         est = {r: sw_cuda.step_clocks(*shape, r) for r in sw_cuda.ROWS_PER_LANE}
         assert est[R] == min(est.values())
+
+
+def test_launch_plan_is_legal_for_every_form_and_R_forced():
+    from chip_smoke import SW_SHAPES
+
+    for B, Lq, Lt in SW_SHAPES + [(3, 1, 1), (1, 129, 7), (4, 511, 3), (1, 1024, 2048),
+                                  (2, 2048, 2048), (12, 33, 65), (1, 64, 1)]:
+        for form, rows in sw_cuda.FORMS.items():
+            for R in rows:
+                if not sw_cuda._fits(R, Lq, Lt):
+                    continue
+                plan = sw_cuda.launch_plan(B, Lq, Lt, R)
+                assert plan.form == form and plan.rows_per_lane == R
+                _assert_legal(plan, B, Lq, Lt)
+
+
+@pytest.mark.parametrize("B,Lq,Lt,R", [
+    (1, 2049, 256, 2), (2, 4096, 512, 2), (12, 2049, 2048, 2),
+    (1, 64, 64, 1), (1, 64, 64, 3), (1, 64, 64, 16),
+    (1, 64, 240_000, 2), (3, 2048, 240_000, 2),
+])
+def test_launch_plan_refuses_a_form_the_shape_cannot_take(B, Lq, Lt, R):
+    """More than 32 strips a block, shared memory past the card's, or an R
+    of no form: the plan raises, so the wrapper launches nothing."""
+    with pytest.raises(ValueError):
+        sw_cuda.launch_plan(B, Lq, Lt, R)
+
+
+def test_launch_plan_takes_the_block_form_at_the_serial_shapes():
+    """Realign's serial launches (1-12 pairs of 128-512 x 256-1024 on the
+    panel) take the block form at a query of 128 rows, and of 256 or 512
+    rows past 256 columns, where it is the faster on the card; there every
+    pick is the least estimate of both forms. The other pad tiers, the
+    headline, the batched path's launches (25-239 pairs of 512 x 1024) and
+    the smoke shapes keep the ticket form at the R its own estimate picks
+    (the plan before the block form existed)."""
+    block = {(Lq, Lt) for Lq, lts in ((128, (256, 512, 1024, 2048)), (256, (512, 1024, 2048)),
+                                      (512, (512, 1024, 2048))) for Lt in lts}
+    from chip_smoke import SW_SHAPES
+
+    serial = [(B, Lq, Lt) for B in range(1, sw_cuda.FEW_PAIRS + 1)
+              for Lq in (128, 256, 512, 1024) for Lt in (256, 512, 1024, 2048)]
+    for shape in serial:
+        B, Lq, Lt = shape
+        plan = sw_cuda.launch_plan(*shape)
+        _assert_legal(plan, *shape)
+        est = {R: sw_cuda.step_clocks(*shape, R)
+               for R in sw_cuda.ROWS_PER_LANE + sw_cuda.BLOCK_ROWS_PER_LANE
+               if sw_cuda._fits(R, Lq, Lt)}
+        assert est[plan.rows_per_lane] == min(est.values()), shape
+        assert (plan.form == "block") == ((Lq, Lt) in block), (shape, plan)
+    batched = [(B, 512, 1024) for B in (13, 25, 64, 153, 239)]
+    for shape in [(512, 256, 512)] + batched + SW_SHAPES:
+        plan = sw_cuda.launch_plan(*shape)
+        _assert_legal(plan, *shape)
+        assert plan.form == "ticket", shape
+        assert plan.rows_per_lane == sw_cuda._rows_per_lane(*shape, sw_cuda.SMS), shape
+    for shape in [(1, 256, 512), (1, 256, 1024), (12, 512, 1024)]:
+        assert sw_cuda.launch_plan(*shape).form == "block"
+
+
+def test_block_form_layout_matches_the_kernel_source():
+    """The wrapper's copy of the block form's ring, target pads and block
+    size is the kernel's (``csrc/sw_wavefront.cu``), so its shared memory
+    size is the one the launch checks."""
+    import re
+    from pathlib import Path
+
+    src = (Path(sw_cuda.__file__).parent.parent / "csrc" / "sw_wavefront.cu").read_text()
+    for name in ("RING", "TPAD", "TTAIL", "BLOCK_MAX_THREADS"):
+        got = int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+        want = (sw_cuda.BLOCK_MAX_STRIPS * 32 if name == "BLOCK_MAX_THREADS"
+                else getattr(sw_cuda, name))
+        assert got == want, name
