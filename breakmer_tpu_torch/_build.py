@@ -12,7 +12,12 @@ no fallback.
 ``launch`` is the lean launch path of a wrapper that keeps the library's
 ctypes function in a module global: the card made current only when it
 is not, the current stream's raw handle, and the error string looked up
-only when a launch fails.
+only when a launch fails; a failed launch raises ``KernelLaunchError``.
+``DEVICE_FAULTS`` are the errors that end a run: that one and torch's
+error for a fault of the card (``torch.AcceleratorError``, which a
+sticky fault such as an illegal address raises at every later call).
+The runner's region fault isolation re-raises them instead of recording
+a region ``error``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,14 @@ NVCC_FLAGS = [
 ]
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch that the CUDA runtime refused or that found the card
+    in a fault: nothing ran, and on a sticky fault nothing will."""
+
+
+DEVICE_FAULTS = (KernelLaunchError, torch.AcceleratorError)
 
 
 def _nvcc() -> str:
@@ -126,6 +139,11 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_launch")
             fn.restype = i32
             fn.argtypes = args + [vp]  # the stream last
+        lib.region_kmers_launch.restype = i32
+        lib.region_kmers_launch.argtypes = ([vp, vp, i32, i32, vp, vp, i32, vp, vp]
+                                            + [i32] * 4 + [vp, i64, vp])
+        lib.region_kmers_smem_bytes.restype = i64
+        lib.region_kmers_smem_bytes.argtypes = [i64] + [i32] * 4
         _lib = lib
     return _lib
 
@@ -135,17 +153,17 @@ def check_launch(err: int, what: str) -> None:
     runtime refused never runs, and a later synchronize does not say so)."""
     if err != 0:
         msg = library().sw_wavefront_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: {msg}")
+        raise KernelLaunchError(f"{what} launch failed: {msg}")
 
 
 def launch(fn, index: int, what, *args) -> None:
     """``fn(*args, stream)`` on card ``index``, with ``stream`` the raw
     handle of its current stream (no ``Stream`` object is built); the card
-    is made current only when it is not already. Raises when ``fn``
-    returns a CUDA error; ``what`` names the launch: a string, or a
-    function that returns one, called only then. The current card is
-    read without ``torch.cuda.current_device``'s lazy-init check: a
-    tensor on the card means CUDA is up."""
+    is made current only when it is not already. Raises
+    ``KernelLaunchError`` when ``fn`` returns a CUDA error; ``what`` names
+    the launch: a string, or a function that returns one, called only
+    then. The current card is read without ``torch.cuda.current_device``'s
+    lazy-init check: a tensor on the card means CUDA is up."""
     if index == torch._C._cuda_getDevice():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:

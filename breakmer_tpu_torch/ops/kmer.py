@@ -20,6 +20,15 @@ one program: on the card one launch of the ``revcomp_kmers`` kernel.
 ``sort_kmers`` and the reference table's sort stay ``torch.sort``, as the
 JAX package leaves its sorts to XLA's.
 
+``sample_only_kmers``, the serial path's call a region, takes one of two
+routes on a card, chosen from the shapes before anything launches
+(``kmer_cuda.region_plan``): the whole composite in one launch of one
+block (``kmer_cuda.region_kmers``, ``csrc/region_kmers.cu``: codes, sort,
+run counts and subtraction in shared memory) where the region fits the
+block, else the chain of the functions above ("per_function"). That
+route gives up "one launch a function, as XLA runs it" for this
+composite alone; no error gives way from one route to the other.
+
 On the device the codes are carried as int64 (torch has no uint32
 ``searchsorted``, ``<<`` or ``max`` on the CPU); SENTINEL = 0xFFFFFFFF
 still sorts after every code of 30 bits or fewer. The host wrappers
@@ -256,6 +265,71 @@ def _to_u32(codes: torch.Tensor) -> np.ndarray:
     return codes.cpu().numpy().astype(np.uint32)
 
 
+# sample_only_kmers calls on a card by route: "fused" (one launch of
+# kmer_cuda.region_kmers) or "per_function" (K1-K4 and torch.sort)
+ROUTES = {"fused": 0, "per_function": 0}
+
+
+def _sample_only_chain(fns, sample_codes, sample_lengths, ref_codes, k, normal_codes,
+                       normal_lengths, device):
+    """The JAX composite's chain through ``fns`` (kmer_codes,
+    unique_counts_sorted, both_strands, subtract_sorted): the sample's
+    (values, counts) less both tables, on ``device``."""
+    codes, unique, strands, subtract = fns
+    s_km, _ = codes(_to_dev(sample_codes, np.int8, device),
+                    _to_dev(sample_lengths, np.int32, device), k)
+    values, counts, _ = unique(sort_kmers(s_km))
+
+    ref = np.asarray(ref_codes, dtype=np.int8).reshape(1, -1)
+    r_km, _ = codes(_to_dev(ref, np.int8, device), _to_dev([ref.shape[1]], np.int32, device), k)
+    # both strands: a sample read may come from either strand, so a k-mer
+    # and its reverse complement both count as reference-present
+    ref_table = torch.sort(strands(r_km.reshape(-1), k)).values
+
+    normal_table = None
+    if normal_codes is not None:
+        n_km, _ = codes(_to_dev(normal_codes, np.int8, device),
+                        _to_dev(normal_lengths, np.int32, device), k)
+        normal_table = sort_kmers(n_km)
+
+    values, counts = subtract(values, counts, ref_table, normal_table)
+    v = _to_u32(values)
+    c = counts.cpu().numpy()
+    keep = v != np.uint32(0xFFFFFFFF)
+    return v[keep], c[keep]
+
+
+def _by_count(v: np.ndarray, c: np.ndarray, min_count: int) -> Tuple[np.ndarray, np.ndarray]:
+    keep = c >= min_count
+    v, c = v[keep], c[keep]
+    # deterministic order: count desc, then code asc (parity tie-break)
+    order = np.lexsort((v, -c.astype(np.int64)))
+    return v[order], c[order]
+
+
+_PLAIN = (kmer_codes_plain, unique_counts_sorted_plain, both_strands_plain,
+          subtract_sorted_plain)
+_DISPATCHED = (kmer_codes, unique_counts_sorted, both_strands, subtract_sorted)
+
+
+def sample_only_kmers_plain(
+    sample_codes: np.ndarray,
+    sample_lengths: np.ndarray,
+    ref_codes: np.ndarray,
+    k: int,
+    normal_codes: Optional[np.ndarray] = None,
+    normal_lengths: Optional[np.ndarray] = None,
+    min_count: int = 2,
+    *,
+    device="cpu",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`sample_only_kmers`'s contract by the chain of the plain
+    versions (torch ops only, on any device): the CPU path, and what the
+    card's kernels are held to."""
+    return _by_count(*_sample_only_chain(_PLAIN, sample_codes, sample_lengths, ref_codes, k,
+                                         normal_codes, normal_lengths, device), min_count)
+
+
 def sample_only_kmers(
     sample_codes: np.ndarray,
     sample_lengths: np.ndarray,
@@ -266,36 +340,41 @@ def sample_only_kmers(
     min_count: int = 2,
     *,
     device,
+    route: Optional[str] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Full pipeline on ``device``: extract -> count -> subtract ->
     threshold. Returns (kmer_codes uint32 sorted desc by count then asc by
-    code, counts int32), host numpy arrays ready for the assembler."""
-    s_km, _ = kmer_codes(_to_dev(sample_codes, np.int8, device),
-                         _to_dev(sample_lengths, np.int32, device), k)
-    values, counts, _ = unique_counts_sorted(sort_kmers(s_km))
+    code, counts int32), host numpy arrays ready for the assembler.
 
-    ref = np.asarray(ref_codes, dtype=np.int8).reshape(1, -1)
-    r_km, _ = kmer_codes(_to_dev(ref, np.int8, device),
-                         _to_dev([ref.shape[1]], np.int32, device), k)
-    # both strands: a sample read may come from either strand, so a k-mer
-    # and its reverse complement both count as reference-present
-    ref_table = torch.sort(both_strands(r_km.reshape(-1), k)).values
-
-    normal_table = None
-    if normal_codes is not None:
-        n_km, _ = kmer_codes(_to_dev(normal_codes, np.int8, device),
-                             _to_dev(normal_lengths, np.int32, device), k)
-        normal_table = sort_kmers(n_km)
-
-    values, counts = subtract_sorted(values, counts, ref_table, normal_table)
-
-    v = _to_u32(values)
-    c = counts.cpu().numpy()
-    keep = (v != np.uint32(0xFFFFFFFF)) & (c >= min_count)
-    v, c = v[keep], c[keep]
-    # deterministic order: count desc, then code asc (parity tie-break)
-    order = np.lexsort((v, -c.astype(np.int64)))
-    return v[order], c[order]
+    On the CPU it is :func:`sample_only_kmers_plain`. On a card the route
+    is ``kmer_cuda.region_plan``'s, chosen from the shapes before anything
+    launches, or ``route`` where given: "fused" is one launch of
+    ``kmer_cuda.region_kmers`` (which raises ``ValueError`` before any
+    launch for a region that does not fit), "per_function" the kernels
+    K1-K4 and ``torch.sort``. Each card call counts in ``ROUTES``."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return sample_only_kmers_plain(sample_codes, sample_lengths, ref_codes, k, normal_codes,
+                                       normal_lengths, min_count, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"sample_only_kmers: no implementation for device {device}")
+    if route is None:
+        kmer_cuda.check_region(sample_codes, sample_lengths, int(np.size(ref_codes)),
+                                normal_codes, normal_lengths, k)
+        route = kmer_cuda.region_plan(
+            np.shape(sample_codes), int(np.size(ref_codes)),
+            None if normal_codes is None else np.shape(normal_codes), k,
+            kmer_cuda.smem_optin(device)).route
+    if route == "fused":
+        v, c = kmer_cuda.region_kmers(sample_codes, sample_lengths, ref_codes, k, normal_codes,
+                                      normal_lengths, min_count, device=device)
+    elif route == "per_function":
+        v, c = _sample_only_chain(_DISPATCHED, sample_codes, sample_lengths, ref_codes, k,
+                                  normal_codes, normal_lengths, device)
+    else:
+        raise ValueError(f"sample_only_kmers: route {route!r}; want 'fused' or 'per_function'")
+    ROUTES[route] += 1
+    return _by_count(v, c, min_count)
 
 
 def kmer_table(

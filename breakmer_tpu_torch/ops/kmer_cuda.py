@@ -17,12 +17,22 @@ refused launch. A zero-size input gives empty outputs and launches
 nothing: CUDA refuses a grid of 0 blocks. Codes are int64 and SENTINEL
 is 0xFFFFFFFF, as in ``ops/kmer.py``; rows [N] or [G, N] are taken row by
 row.
+
+``region_kmers`` is a serial region's whole ``sample_only_kmers`` call in
+one launch of one block (``csrc/region_kmers.cu``): host numpy in, packed
+into one pinned buffer and copied to the card once, the kept (value,
+count) pairs copied back once. ``region_plan`` says, from the shapes
+alone and before anything touches the card, whether a region's layout
+fits the block's opt-in shared memory; ``ops/kmer.py`` routes by it.
 """
 
 from __future__ import annotations
 
+import threading
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from breakmer_tpu_torch import _build
@@ -30,9 +40,11 @@ from breakmer_tpu_torch import _build
 SENTINEL = 0xFFFFFFFF  # ops/kmer.py's SENTINEL as the int64 the device carries
 MAX_K = 15             # 2k-bit codes of at most 30 bits
 KERNELS = ("kmer_codes", "revcomp_kmers", "unique_counts_sorted", "subtract_sorted")
+REGION_KERNEL = "region_kmers"
 
-# kernel launches a kernel name: one per call with a non-empty input
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+# kernel launches a kernel name: one per call with a non-empty input (the
+# region kernel: one per call)
+LAUNCHES = dict.fromkeys((*KERNELS, REGION_KERNEL), 0)
 _LAUNCH = {}  # kernel name: the library's <name>_launch, at its first launch
 
 
@@ -189,3 +201,191 @@ def subtract_sorted(
                 None if normal is None else normal.data_ptr(), m_normal, rows, n,
                 out_values.data_ptr(), out_counts.data_ptr())
     return out_values, out_counts
+
+
+# ---------------------------------------------------------------------------
+# A serial region's sample_only_kmers in one launch (csrc/region_kmers.cu)
+# ---------------------------------------------------------------------------
+
+# csrc/region_kmers.cu's layout constants (tests/test_torch_region_kmers.py
+# reads them from the source): 32 warps of uint16 offsets for 256 digits,
+# 64 words of counters, and at most 65,535 sample windows
+REGION_WARPS, REGION_BINS, REGION_MISC_WORDS, REGION_MAX_KEYS = 32, 256, 64, 65535
+H100_SMEM_OPTIN = 232_448  # an H100's opt-in shared memory a block (227 KB)
+
+
+@dataclass(frozen=True)
+class RegionPlan:
+    """The route of one region's ``sample_only_kmers`` on the card:
+    "fused" (``region_kmers``, one launch) where ``smem_bytes`` fit
+    ``limit`` and the sample's windows fit the sort's offsets, else
+    "per_function" (K1-K4 and ``torch.sort``)."""
+
+    route: str
+    smem_bytes: int
+    limit: int
+    windows: int
+
+
+def region_smem_bytes(windows: int, longest: int) -> int:
+    """``region_layout(...).bytes`` of ``csrc/region_kmers.cu``: the stage
+    and scratch X (at least ``windows`` + 1 words, and a row of
+    ``longest`` bytes in 16-byte lines), the sample's codes S, their bit
+    map B, the digit offsets and the counters."""
+    x_lines = max(-(-(windows + 1) // 4), -(-(longest + 30) // 16))
+    s_words = -(-windows // 4) * 4
+    b_words = -(-(-(-windows // 32)) // 4) * 4
+    return (16 * x_lines + 4 * (s_words + b_words) + 2 * REGION_WARPS * REGION_BINS
+            + 4 * REGION_MISC_WORDS)
+
+
+def region_plan(sample_shape: Tuple[int, int], ref_len: int,
+                normal_shape: Optional[Tuple[int, int]], k: int, limit: int) -> RegionPlan:
+    """The route for a sample [R, L], a reference of ``ref_len`` bases and
+    a normal [Rn, Ln] (None: none) at k, against ``limit`` bytes of shared
+    memory a block; shapes with L or ``ref_len`` shorter than k are the
+    caller's to refuse first."""
+    (R, L), ln = sample_shape, (0 if normal_shape is None else normal_shape[1])
+    windows = R * (L - k + 1)
+    smem = region_smem_bytes(windows, max(L, ref_len, ln))
+    fits = smem <= limit and windows <= REGION_MAX_KEYS
+    return RegionPlan("fused" if fits else "per_function", smem, limit, windows)
+
+
+_SMEM_OPTIN = {}  # card index: its opt-in shared memory a block
+
+
+def smem_optin(device) -> int:
+    """The card's opt-in shared memory a block, in bytes (asked once)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SMEM_OPTIN:
+        _SMEM_OPTIN[index] = torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+    return _SMEM_OPTIN[index]
+
+
+def region_pack(sample_codes, sample_lengths, ref_codes, normal_codes=None,
+                normal_lengths=None) -> Tuple[list, int]:
+    """The one buffer the kernel reads, as (segments, total bytes): each
+    segment (name, offset, array) starts on a 16-byte line and takes whole
+    lines, so the kernel's 16-byte loads stay inside it. Segments: the
+    sample's int8 codes and int32 lengths, the reference's codes and its
+    length, and the normal's codes and lengths (when given)."""
+    ref = np.ascontiguousarray(ref_codes, dtype=np.int8).reshape(1, -1)
+    arrays = [("sample_codes", np.ascontiguousarray(sample_codes, dtype=np.int8)),
+              ("sample_lengths", np.ascontiguousarray(sample_lengths, dtype=np.int32)),
+              ("ref_codes", ref),
+              ("ref_length", np.array([ref.shape[1]], dtype=np.int32))]
+    if normal_codes is not None:
+        arrays += [("normal_codes", np.ascontiguousarray(normal_codes, dtype=np.int8)),
+                   ("normal_lengths", np.ascontiguousarray(normal_lengths, dtype=np.int32))]
+    segments, at = [], 0
+    for name, a in arrays:
+        segments.append((name, at, a))
+        at += -(-a.nbytes // 16) * 16
+    return segments, at
+
+
+_PINNED = threading.local()  # a thread's reused pinned staging buffers
+
+
+def _pinned(name: str, nbytes: int) -> torch.Tensor:
+    buf = getattr(_PINNED, name, None)
+    if buf is None or buf.numel() < nbytes:
+        size = 1 << max(16, (nbytes - 1).bit_length())
+        buf = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        setattr(_PINNED, name, buf)
+    return buf[:nbytes]
+
+
+def check_region(sample_codes, sample_lengths, ref_len, normal_codes, normal_lengths, k):
+    """What the per-function route refuses, in its order, before anything
+    launches: k, then the sample's, the reference's and the normal's
+    shapes (as ``kmer_codes`` refuses them), then an empty normal table
+    against sample windows (as ``subtract_sorted`` does)."""
+    _check_k("kmer_codes", k)
+    sets = [(np.shape(sample_codes), np.shape(sample_lengths)), ((1, ref_len), (1,))]
+    if normal_codes is not None:
+        sets.append((np.shape(normal_codes), np.shape(normal_lengths)))
+    for codes, lengths in sets:
+        if len(codes) != 2 or tuple(lengths) != codes[:1]:
+            raise ValueError(f"kmer_codes: codes {tuple(codes)}, lengths "
+                             f"{tuple(lengths)}; want [R, L] and [R]")
+        if codes[1] - k + 1 <= 0:
+            raise ValueError(f"read length {codes[1]} shorter than k={k}")
+    windows = sets[0][0][0] * (sets[0][0][1] - k + 1)
+    if normal_codes is not None and windows and sets[2][0][0] == 0:
+        raise ValueError(f"subtract_sorted: a table of width 0 [(1, 0)] against "
+                         f"{windows} queries")
+
+
+def region_kmers(sample_codes, sample_lengths, ref_codes, k: int, normal_codes=None,
+                 normal_lengths=None, min_count: int = 2, *, device
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """``ops.kmer.sample_only_kmers`` on card ``device`` in one launch:
+    (values uint32, counts int32) of the kept runs, ascending by value
+    (the caller orders them). Raises ``ValueError`` before anything touches
+    the card for what the per-function route refuses and for a region
+    whose plan is not "fused" on this card."""
+    ref_len = int(np.size(ref_codes))
+    check_region(sample_codes, sample_lengths, ref_len, normal_codes, normal_lengths, k)
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"region_kmers: device {device}; it runs on a CUDA device")
+    shape = np.shape(sample_codes)
+    plan = region_plan(shape, ref_len, None if normal_codes is None else np.shape(normal_codes),
+                       k, smem_optin(device))
+    if plan.route != "fused":
+        raise ValueError(f"region_kmers: a sample of {plan.windows} windows needs "
+                         f"{plan.smem_bytes} bytes of shared memory a block, the card has "
+                         f"{plan.limit} (the sort takes {REGION_MAX_KEYS} windows at most)")
+    segments, total = region_pack(sample_codes, sample_lengths, ref_codes, normal_codes,
+                                  normal_lengths)
+    staged = region_stage(segments, total, device)
+    return region_fetch(region_run(staged, segments, k, min_count, plan.windows))
+
+
+def region_stage(segments, total: int, device) -> torch.Tensor:
+    """The packed inputs on the card: written into the thread's pinned
+    buffer, then one copy, which must end (``region_fetch`` waits for it)
+    before the thread stages again."""
+    host = _pinned("in", total)
+    view = host.numpy()
+    for _, at, a in segments:
+        view[at:at + a.nbytes] = a.reshape(-1).view(np.uint8)
+    return host.to(device, non_blocking=True)
+
+
+def region_run(staged: torch.Tensor, segments, k: int, min_count: int,
+               windows: int) -> torch.Tensor:
+    """One launch on the staged inputs -> the result buffer on the card,
+    int32 [2 + 2 cap]: the kept runs, the runs, then (value, count) pairs.
+    cap = windows // max(min_count, 1): each kept run holds at least
+    min_count of the sample's windows."""
+    _on_one_card(REGION_KERNEL, staged)
+    seg = {name: (at, a) for name, at, a in segments}
+    base = staged.data_ptr()
+    (R, L), L_r = seg["sample_codes"][1].shape, seg["ref_codes"][1].shape[1]
+    normal = "normal_codes" in seg
+    R_n, L_n = seg["normal_codes"][1].shape if normal else (0, 0)
+    cap = windows // max(min_count, 1)
+    out = torch.empty(2 + 2 * cap, dtype=torch.int32, device=staged.device)
+    _launch(REGION_KERNEL, staged.get_device(),
+            lambda: f"region_kmers (R={R}, L={L}, L_r={L_r}, normal {R_n}x{L_n}, k={k})",
+            base + seg["sample_codes"][0], base + seg["sample_lengths"][0], R, L,
+            base + seg["ref_codes"][0], base + seg["ref_length"][0], L_r,
+            base + seg["normal_codes"][0] if normal else None,
+            base + seg["normal_lengths"][0] if normal else None, R_n, L_n, k, min_count,
+            out.data_ptr(), cap)
+    return out
+
+
+def region_fetch(out: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+    """The result buffer back to the host in one copy into the thread's
+    pinned buffer (which waits for the launch) -> (values uint32, counts
+    int32), ascending by value."""
+    host = _pinned("out", 4 * out.numel()).view(torch.int32)
+    host.copy_(out)
+    view = host.numpy()
+    pairs = view[2:2 + 2 * int(view[0])].reshape(-1, 2)
+    return pairs[:, 0].view(np.uint32).copy(), pairs[:, 1].copy()

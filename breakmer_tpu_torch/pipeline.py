@@ -15,6 +15,7 @@ from typing import Iterable, List, Optional
 
 import numpy as np
 
+from breakmer_tpu_torch._build import DEVICE_FAULTS
 from breakmer_tpu_torch.align.index import GenomeIndex
 from breakmer_tpu_torch.align.realign import RegionRef
 from breakmer_tpu_torch.assemble.greedy import Contig, assemble
@@ -445,6 +446,8 @@ class TargetPipeline:
                     n_clean_reads=len(self.clean_batch) if self.clean_batch else 0,
                 )
             return self.resolve_sv()
+        except DEVICE_FAULTS:  # a kernel that failed, or a card in a fault: ends the run
+            raise
         except Exception as exc:  # region-level fault isolation (SURVEY.md §5)
             log.exception("target %s failed", self.target.name)
             return RegionResult(

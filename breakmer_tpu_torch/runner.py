@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from breakmer_tpu_torch._build import DEVICE_FAULTS
 from breakmer_tpu_torch.align.index import GenomeIndex
 from breakmer_tpu_torch.align.realign import RegionRef
 from breakmer_tpu_torch.call.events import SVEvent
@@ -800,6 +801,8 @@ class Runner:
             try:
                 for contig in pipe.assemble_contigs():
                     out.append((encode_seq(contig.seq), pipe.region_ref))
+            except DEVICE_FAULTS:  # ends the run, as in TargetPipeline.run
+                raise
             except Exception as exc:
                 log.exception("target %s assembly failed", name)
                 pipe.contigs = []
@@ -854,6 +857,8 @@ class Runner:
                 if getattr(pipe, "_assembly_error", None):
                     raise RuntimeError(pipe._assembly_error)
                 result = pipe.classify_contigs(segs_by_region[name])
+            except DEVICE_FAULTS:  # ends the run, as in TargetPipeline.run
+                raise
             except Exception as exc:  # region-level fault isolation
                 log.exception("target %s failed", name)
                 result = RegionResult(

@@ -17,30 +17,40 @@ phase's wall time is printed):
      the step-cost table behind the plan's clock model; one pair at each
      of realign's pad tiers at every R of both forms;
   4. the k-mer engine on the card against the CPU (2,000 x 150 bp reads,
-     3 kb region, matched normal); then each of the four k-mer kernels
+     3 kb region, matched normal: past the region kernel's boundary, the
+     per-function route); then each of the four k-mer kernels
      (csrc/kmer.cu) and the both-strand form of revcomp_kmers against its
      plain version, exact, at a serial region's shapes and the batch
      step's (unique_counts_sorted on tiled errored reads and on random
      reads), with its device time (queued calls), a call's time, the
      plain version's, the bound and one torch call's where one computes
-     the same function; each at its designs' span and tile edges; and the
-     CUDA kernels one sample_only_kmers call runs (profiler, in a fresh
-     process and in this one, each hand kernel's activities beside its
-     launches: the fresh process must see every launch);
+     the same function; each at its designs' span and tile edges; the
+     region kernel (csrc/region_kmers.cu, a serial region's whole
+     sample_only_kmers in one launch) exact against the plain chain on
+     every region case of tools/kmer_time.py (each through the plan's
+     route, the fused route forced where it fits), timed at the serial
+     shape; and the CUDA kernels one sample_only_kmers call runs
+     (profiler, in a fresh process, on the plan's route and on the
+     per-function route forced, and in this one, each hand kernel's
+     activities beside its launches: the fresh process must see every
+     launch, and one launch of the region kernel alone on the plan's);
   5. the serial slice on the card (python -m breakmer_tpu_torch.cli run,
      driven as the CLI drives it) on scenario seeds 1 and 7: every
      planted-SV checker must pass;
   6. the slice at panel scale: a 100-gene errored panel with a matched
      normal, on the card and then on the CPU; svs.out and the VCF must be
      byte-identical, no region may fail, every SW batch of the card run
-     must have launched the kernel, every k-mer kernel must have
-     launched, kmer_codes at least twice a region that reached the k-mer
-     stage (three times with a normal), and at least one SW launch must
+     must have launched the kernel, one region kernel launch a fused
+     region, the per-function kernels on per-function regions alone
+     (kmer_codes also for a germline recheck), and at least one SW launch must
      have taken the block form (1x256x512 and 1x256x1024 every time),
      each counted under the form its plan chose; a second card run
      records the SW launches by shape, each replayed for its kernel time
      in its own form and in the ticket form, in turns, beside its bound
-     (the timed run records nothing);
+     (the timed run records nothing); then every region's recorded k-mer
+     call through the region kernel, exact against the plain chain, and
+     the routes of the panel's regions and of bench_panel's 20 genes run
+     serially on the card;
   7. the probe kernels against their plain versions on the card, exact:
      the stripped SW loop in both forms at steps 1, 7, 255 and the
      default, every int16 op of both int16 probes, the running max; each
@@ -56,7 +66,8 @@ phase's wall time is printed):
      32 regions a packed k-mer launch) on the card, nprocs 1 (cold, then
      warm) and 4: svs.out and the VCF byte-identical to phase 6's serial
      output, no region error, every SW batch launched the kernel, every
-     k-mer kernel launched, the SW launches counted by form; then a
+     per-function k-mer kernel launched and the region kernel no time,
+     the SW launches counted by form; then a
      recorded warm run gives the SW launches by shape and form as in
      phase 6;
   9. the k-mer batch step on the card against the CPU, exact, full and
@@ -634,7 +645,94 @@ def kmer_kernel_rows(dev, card):
     alone = rows.pop("revcomp_kmers")
     rows["revcomp_kmers"] = dict(rows.pop("both_strands"), form="both_strands", alone=alone)
     kmer_edges(dev, card)
+    rows["region_kmers"] = region_kernel_row(dev, card)
     return rows, kmer_call_count(card)
+
+
+def region_bound(args, kw, kept: int):
+    """(bound_ms, by) of one region's call: its inputs read once (codes,
+    lengths), its (value, count) pairs and count written once; and 3
+    int32 operations a window of the three sets (a shift, an or and a
+    mask of the rolling code)."""
+    arrays = [a for a in (*args[:3], kw.get("normal_codes"), kw.get("normal_lengths"))
+              if a is not None]
+    nbytes = sum(np.asarray(a).nbytes for a in arrays) + 8 * kept + 8
+    k = args[3]
+    windows = sum(a.shape[0] * (a.shape[1] - k + 1)
+                  for a in (args[0], kw.get("normal_codes")) if a is not None)
+    windows += len(args[2]) - k + 1
+    return bound(nbytes, int32_ops=3 * windows)
+
+
+def region_kernel_row(dev, card):
+    """The region kernel (csrc/region_kmers.cu, a serial region's whole
+    sample_only_kmers in one launch) against the plain chain on the card,
+    exact: at the serial shape (tools/kmer_time.py's region cases), timed
+    (device ms of queued launches on staged inputs, events around one
+    launch, the whole call's host ms with its two copies, the plain
+    chain's); then every region case, each through the plan's route (one
+    launch of the region kernel where it fits, the per-function kernels
+    past the boundary) and the fused route forced on those that fit."""
+    from breakmer_tpu_torch.ops import kmer, kmer_cuda
+    from breakmer_tpu_torch.timing import cuda_ms, queued_ms
+    from breakmer_tpu_torch.tools import kmer_time
+
+    def wall_ms(fn, reps=20):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    routes = {"fused": 0, "per_function": 0}
+    for name in kmer_time.REGION_CASES:
+        args, kw = kmer_time.region_case(name)
+        want = kmer.sample_only_kmers_plain(*args, **kw, device=dev)
+        normal = kw.get("normal_codes")
+        plan = kmer_cuda.region_plan(args[0].shape, len(args[2]),
+                                     None if normal is None else normal.shape, args[3],
+                                     kmer_cuda.smem_optin(dev))
+        before = dict(kmer_cuda.LAUNCHES)
+        got = kmer.sample_only_kmers(*args, **kw, device=dev)
+        moved = {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before
+                 if kmer_cuda.LAUNCHES[n] != before[n]}
+        check(all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(want, got)),
+              f"region_kmers ({name}): the plan's route != plain")
+        check((moved == {"region_kmers": 1}) == (plan.route == "fused"),
+              f"region_kmers ({name}): launches {moved} on the {plan.route} route")
+        routes[plan.route] += 1
+        if plan.route == "fused":
+            got = kmer.sample_only_kmers(*args, **kw, device=dev, route="fused")
+            check(all(np.array_equal(a, b) for a, b in zip(want, got)),
+                  f"region_kmers ({name}), forced: kernel != plain")
+    args, kw = kmer_time.region_case("serial")
+    segments, total = kmer_cuda.region_pack(args[0], args[1], args[2], kw["normal_codes"],
+                                            kw["normal_lengths"])
+    staged = kmer_cuda.region_stage(segments, total, dev)
+    windows = args[0].shape[0] * (args[0].shape[1] - args[3] + 1)
+
+    def launch():
+        return kmer_cuda.region_run(staged, segments, args[3], kw["min_count"], windows)
+
+    want = kmer.sample_only_kmers_plain(*args, **kw, device=dev)
+    r = dict(shape=[list(np.shape(a)) for _, _, a in segments], max_abs_err=0,
+             ms=cuda_ms(launch), device_ms=queued_ms(launch),
+             call_ms=wall_ms(lambda: kmer.sample_only_kmers(*args, **kw, device=dev)),
+             plain_ms=wall_ms(lambda: kmer.sample_only_kmers_plain(*args, **kw, device=dev), 5),
+             library_ms=None, library_device_ms=None, bound=region_bound(args, kw, len(want[0])),
+             region_cases=routes, smem_bytes=kmer_cuda.region_plan(
+                 args[0].shape, len(args[2]), kw["normal_codes"].shape, args[3],
+                 kmer_cuda.smem_optin(dev)).smem_bytes)
+    r["plain_device_ms"] = None
+    r["bound_share"] = r["bound"][0] / r["device_ms"]
+    print(f"  region_kmers serial {r['shape']}: kernel == plain ({len(want[0])} kept); device "
+          f"{r['device_ms']:.4f} ms (queued), one launch {r['ms']:.4f} ms (events), a call "
+          f"{r['call_ms']:.4f} ms (host clock, its two copies and its wait), plain chain "
+          f"{r['plain_ms']:.4f} ms; bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), "
+          f"{100 * r['bound_share']:.2f} % of the device time; {r['smem_bytes']} bytes of "
+          f"shared memory; library none; the {len(kmer_time.REGION_CASES)} region cases exact, "
+          f"routes {routes} [{card}]", flush=True)
+    return r
 
 
 def kmer_call_count(card):
@@ -652,20 +750,28 @@ def kmer_call_count(card):
                            "--call", "--reps", "5"], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     check(proc.returncode == 0, f"kmer_time --call failed: {proc.stderr[-2000:]}")
-    fresh = json.loads(proc.stdout.strip().splitlines()[-1])["sample_only_kmers"]
+    reading = json.loads(proc.stdout.strip().splitlines()[-1])
+    fresh = reading["sample_only_kmers"]
+    per_function = reading["sample_only_kmers per_function"]
     here = kmer_time.call_profile(np.random.default_rng(0), reps=5)
-    for label, call in (("a fresh process", fresh), ("this process", here)):
+    for label, call in (("a fresh process", fresh), ("this process", here),
+                        ("a fresh process, the per-function route forced", per_function)):
         seen, launched = call["hand_kernels_seen"], call["hand_kernels_launched"]
         print(f"  sample_only_kmers {kmer_time.SERIAL}, profiled in {label}: "
               f"{call['kernels']} CUDA kernels and {call['copies']} copies a call, "
               f"{call['device_ms']:.4f} ms of device time, {call['wall_ms']:.4f} ms a call; "
               f"hand kernels seen {seen}, launched {launched} [{card}]", flush=True)
-    check(fresh["hand_kernels_seen"] == fresh["hand_kernels_launched"],
-          "sample_only_kmers: the profiler's hand kernels in a fresh process "
-          f"{fresh['hand_kernels_seen']} != their launches {fresh['hand_kernels_launched']}")
+    for label, call in (("", fresh), (" (per-function route)", per_function)):
+        check(call["hand_kernels_seen"] == call["hand_kernels_launched"],
+              f"sample_only_kmers{label}: the profiler's hand kernels in a fresh process "
+              f"{call['hand_kernels_seen']} != their launches {call['hand_kernels_launched']}")
+    check(fresh["hand_kernels_launched"]["region_kmers"] == 1 and fresh["kernels"] == 1,
+          f"sample_only_kmers at the serial shape: {fresh['kernels']} kernels, not one launch "
+          "of the region kernel")
     keys = ("kernels", "copies", "device_ms", "wall_ms", "hand_kernels_seen",
             "hand_kernels_launched")
-    return {**{k: fresh[k] for k in keys}, "this_process": {k: here[k] for k in keys}}
+    return {**{k: fresh[k] for k in keys}, "this_process": {k: here[k] for k in keys},
+            "per_function_route": {k: per_function[k] for k in keys}}
 
 
 def kmer_edges(dev, card):
@@ -824,50 +930,111 @@ def phase_kmer(dev, card):
 
 class KmerCalls:
     """Counts the serial path's sample_only_kmers calls (those with a
-    matched normal apart) while it is entered, and sets every k-mer
-    kernel's launch count to 0 on entry; ``launches`` holds the counts
-    on exit."""
+    matched normal apart) and their routes while it is entered, keeps each
+    call's arguments (``record``), and sets every k-mer kernel's launch
+    count to 0 on entry; ``launches`` and ``routes`` hold the counts on
+    exit."""
+
+    def __init__(self, record: bool = False):
+        self.record = record
 
     def __enter__(self):
         from breakmer_tpu_torch import pipeline
-        from breakmer_tpu_torch.ops import kmer_cuda
+        from breakmer_tpu_torch.ops import kmer, kmer_cuda
 
-        self.pipeline, self.kmer_cuda = pipeline, kmer_cuda
+        self.pipeline, self.kmer, self.kmer_cuda = pipeline, kmer, kmer_cuda
         self.orig = pipeline.sample_only_kmers
         self.calls = self.with_normal = 0
         self.shapes = []  # (sample reads, read length, reference length) a call
+        self.args = []    # (args, kwargs) a call, with record
 
         def counted(*args, normal_codes=None, **kw):
             self.calls += 1
             self.with_normal += normal_codes is not None
             self.shapes.append((*args[0].shape, len(args[2])))
+            if self.record:
+                self.args.append((args, dict(kw, normal_codes=normal_codes)))
             return self.orig(*args, normal_codes=normal_codes, **kw)
 
         pipeline.sample_only_kmers = counted
-        for name in kmer_cuda.KERNELS:
+        for name in kmer_cuda.LAUNCHES:
             kmer_cuda.LAUNCHES[name] = 0
+        self.routes_before = dict(kmer.ROUTES)
         return self
 
     def __exit__(self, *exc):
         self.launches = dict(self.kmer_cuda.LAUNCHES)
+        self.routes = {r: n - self.routes_before[r] for r, n in self.kmer.ROUTES.items()}
         self.pipeline.sample_only_kmers = self.orig
 
     def check(self, label: str, serial: bool) -> dict:
-        """Every k-mer kernel launched; on the serial path, kmer_codes at
-        least twice a region that reached the k-mer stage (three times
-        with a normal)."""
-        for name, n in self.launches.items():
-            check(n > 0, f"{label}: the {name} kernel launched no time")
+        """The kernels of the path launched. Serial: one region kernel
+        launch a fused call, the per-function kernels on the per-function
+        route's calls alone (kmer_codes at least twice each, and for the
+        germline recheck), every call counted under one route. Batched:
+        the four per-function kernels, no region kernel."""
+        n = self.launches
         if serial:
-            need = 2 * self.calls + self.with_normal
-            check(self.launches["kmer_codes"] >= need,
-                  f"{label}: {self.launches['kmer_codes']} kmer_codes launches for "
-                  f"{self.calls} regions ({self.with_normal} with a normal): want >= {need}")
+            fused, per = self.routes["fused"], self.routes["per_function"]
+            check(fused + per == self.calls,
+                  f"{label}: routes {self.routes} for {self.calls} sample_only_kmers calls")
+            check(n["region_kmers"] == fused,
+                  f"{label}: {n['region_kmers']} region kernel launches for {fused} fused calls")
+            check(n["kmer_codes"] >= 2 * per,
+                  f"{label}: {n['kmer_codes']} kmer_codes launches for {per} per-function calls")
+            for name in ("revcomp_kmers", "unique_counts_sorted", "subtract_sorted"):
+                check((n[name] > 0) == (per > 0),
+                      f"{label}: {name} launched {n[name]} times for {per} per-function calls")
+        else:
+            check(n["region_kmers"] == 0, f"{label}: the batched path launched the region kernel")
+            for name in self.kmer_cuda.KERNELS:
+                check(n[name] > 0, f"{label}: the {name} kernel launched no time")
         med = np.median(np.array(self.shapes), axis=0).tolist() if self.shapes else None
-        print(f"  {label} k-mer kernel launches {self.launches} ({self.calls} regions "
-              f"reached the k-mer stage, {self.with_normal} with a normal; median sample "
+        print(f"  {label} k-mer kernel launches {n} ({self.calls} regions reached the k-mer "
+              f"stage, {self.with_normal} with a normal; routes {self.routes}; median sample "
               f"reads, read length, reference length {med})", flush=True)
-        return self.launches
+        return n
+
+
+def replay_regions(calls, card, label):
+    """Every recorded serial call (a region's arguments) through the region
+    kernel, the fused route forced where its plan fuses, exact against
+    the plain chain on the card; the plan's routes counted; then the
+    fused regions' launches alone, on inputs staged beforehand, back to
+    back between two CUDA events (their summed device time)."""
+    from breakmer_tpu_torch.ops import kmer, kmer_cuda
+
+    dev = card0()
+    routes = {"fused": 0, "per_function": 0}
+    staged = []
+    for args, kw in calls:
+        normal = kw.get("normal_codes")
+        plan = kmer_cuda.region_plan(np.shape(args[0]), len(args[2]),
+                                     None if normal is None else np.shape(normal), args[3],
+                                     kmer_cuda.smem_optin(dev))
+        routes[plan.route] += 1
+        if plan.route == "fused":
+            kw = {k: v for k, v in kw.items() if k != "device"}
+            want = kmer.sample_only_kmers_plain(*args, **kw, device=dev)
+            got = kmer.sample_only_kmers(*args, **kw, device=dev, route="fused")
+            check(all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(want, got)),
+                  f"{label}: region kernel != plain on a region of {np.shape(args[0])}")
+            segments, total = kmer_cuda.region_pack(args[0], args[1], args[2], normal,
+                                                    kw.get("normal_lengths"))
+            staged.append((kmer_cuda.region_stage(segments, total, dev), segments, args[3],
+                           kw["min_count"], plan.windows))
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for x in staged:
+        kmer_cuda.region_run(*x)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    print(f"  {label}: the region kernel == plain on each of the {routes['fused']} fused "
+          f"regions; routes by the plan {routes}; their {len(staged)} launches back to back "
+          f"{ms:.4f} ms (events) [{card}]", flush=True)
+    return dict(routes, launches_ms=ms)
 
 
 def run_panel(cfg_kwargs, out: Path, device: str):
@@ -936,7 +1103,7 @@ def phase_slice_scale(card, panel):
 
     cfg_kwargs, checks, work = panel
     cfg_kwargs = {**cfg_kwargs, "batch_regions": False}
-    with KmerCalls() as kmer_calls:  # every k-mer kernel's count is 0 here
+    with KmerCalls(record=True) as kmer_calls:  # every k-mer kernel's count is 0 here
         sw_cuda.LAUNCHES = 0  # main path starts here
         sw_cuda.LAUNCHES_BY_FORM.update(ticket=0, block=0)
         events, metrics, setup_s, run_s, _ = run_panel(cfg_kwargs, work / "cuda", "cuda")
@@ -944,6 +1111,8 @@ def phase_slice_scale(card, panel):
         by_form = dict(sw_cuda.LAUNCHES_BY_FORM)
     kmer_launches = kmer_calls.check("panel100 serial", serial=True)
     sw_batches = METER.sw_launches
+    check(kmer_launches["region_kmers"] > 0,
+          f"panel100 serial: the region kernel launched no time: {kmer_launches}")
     check(launches > 0, "main path launched the SW kernel no time")
     check(launches == sw_batches,
           f"SW kernel launches {launches} != sw_score_batch calls {sw_batches}")
@@ -984,7 +1153,29 @@ def phase_slice_scale(card, panel):
     print(f"  panel100 serial SW launches by form: {by_form} [{card}]", flush=True)
     by_shape = rec.by_shape("panel100 serial", card)
     torch.cuda.synchronize()
-    return launches, by_shape, kmer_launches
+    routes = {"panel100": replay_regions(kmer_calls.args, card, "panel100 serial regions"),
+              "bench_panel20": bench_panel_routes(card)}
+    return launches, by_shape, kmer_launches, routes
+
+
+def bench_panel_routes(card):
+    """bench_panel's 20-gene panel (its defaults: read step 6) on the
+    serial path on the card: each region's route, counted, and the
+    region kernel exact against the plain chain on each fused region."""
+    from breakmer_tpu_torch import bench_panel
+    from breakmer_tpu_torch.runner import Runner
+
+    work = WORK / "bench_panel20_serial"
+    work.mkdir(parents=True)
+    cfg = bench_panel.build_panel(work, 20, 6, device="cuda")
+    runner = Runner(type(cfg)(**{**cfg.__dict__, "batch_regions": False}))
+    runner.setup()
+    with KmerCalls(record=True) as calls:
+        runner.run()
+    torch.cuda.synchronize()
+    check(not any(r.error for r in runner.results), "bench_panel 20 genes serial: region errors")
+    calls.check("bench_panel 20 genes serial", serial=True)
+    return replay_regions(calls.args, card, "bench_panel 20 genes serial regions")
 
 
 def phase_batched_panel(card, panel, serial_sw_batches):
@@ -1903,7 +2094,7 @@ def phase_genome_e2e(card):
 # G * B pairs, kmer_codes for the reads and for the references, the
 # both-strand table (counted as revcomp_kmers), one each of the others
 ENTRY_LAUNCHES = {"sw_wavefront": 1, "kmer_codes": 2, "revcomp_kmers": 1,
-                  "unique_counts_sorted": 1, "subtract_sorted": 1}
+                  "unique_counts_sorted": 1, "subtract_sorted": 1, "region_kmers": 0}
 DRYRUN_STAGES = ("_dryrun_step", "_dryrun_index", "_dryrun_full_panel")
 
 
@@ -2009,6 +2200,9 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     **{name: ("breakmer_tpu_torch/csrc/kmer.cu",
               f"{where} (jitted {name}: an XLA program, not a Pallas kernel)")
        for name, where in KMER_KERNELS.items()},
+    "region_kmers": ("breakmer_tpu_torch/csrc/region_kmers.cu",
+                     "breakmer_tpu/ops/kmer.py:190-235 (sample_only_kmers: a host composite "
+                     "of jitted XLA programs, not a Pallas kernel)"),
 }
 
 
@@ -2042,7 +2236,7 @@ def main() -> int:
     kmer_rows, kmer_call = timed("kmer", phase_kmer, dev, card)
     timed("slice seeds 1, 7", phase_slice_exact, card)
     panel = build_panel100()
-    sw_launches, serial_by_shape, kmer_launches = timed(
+    sw_launches, serial_by_shape, kmer_launches, kmer_routes = timed(
         "panel100", phase_slice_scale, card, panel)
     batched_launches, batched_by_shape, batched_rate, kmer_batched = timed(
         "batched panel100", phase_batched_panel, card, panel, sw_launches)
@@ -2076,14 +2270,18 @@ def main() -> int:
                                 main_path_by_shape=serial_by_shape,
                                 batched_path_by_shape=batched_by_shape, **sw_forms)
     launches["sw_wavefront"] = sw_launches
-    for name, row in kmer_rows.items():
-        rows[name] = dict(row, batched_path_launches=kmer_batched[name])
-        launches[name] = kmer_launches[name]
+    for name, row in kmer_rows.items():  # each kernel's path: serial, else batched
+        path = "serial" if kmer_launches[name] else "batched"
+        rows[name] = dict(row, batched_path_launches=kmer_batched[name], launches_path=path,
+                          serial_path_launches=kmer_launches[name])
+        launches[name] = kmer_launches[name] or kmer_batched[name]
+    rows["region_kmers"]["serial_routes"] = kmer_routes
     for name in ENTRY_LAUNCHES:
         rows[name]["graft_entry_launches"] = {
             "entry_step": entry_launches[name],
             "dryrun_stages": [stage[name] for stage in dryrun_launches]}
     rows["kmer_codes"]["sample_only_kmers_call"] = kmer_call
+    rows["region_kmers"]["sample_only_kmers_call"] = kmer_call
     table = []
     for name, (source, replaces) in KERNELS.items():
         row = rows[name]
@@ -2107,7 +2305,10 @@ def main() -> int:
                                              "main_path_by_shape", "batched_path_by_shape",
                                              "form_turns", "step_cycles", "tier_grid",
                                              "contig_device_ms", "bound_share", "batch_step",
-                                             "form", "alone", "sample_only_kmers_call")
+                                             "form", "alone", "sample_only_kmers_call",
+                                             "launches_path", "serial_path_launches",
+                                             "call_ms", "region_cases", "smem_bytes",
+                                             "serial_routes")
                          if k in row}})
     print(card_line())
     print(json.dumps({"kernels": table}))

@@ -1019,15 +1019,20 @@ def test_kmer_host_wrappers_on_card_match_cpu(card, with_normal):
              ("poly_a", (np.zeros((50, 100), np.int8), np.full(50, 100, np.int32), region, 15)),
              ("empty_batch", (codes[:0], lengths[:0], region, 15))]
     for name, args in cases:
-        before = dict(kmer_cuda.LAUNCHES)
-        got = kmer.sample_only_kmers(*args, **kw, device=card)
-        moved = {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before}
-        want = kmer.sample_only_kmers(*args, **kw, device="cpu")
-        for a, b in zip(want, got):
-            assert a.dtype == b.dtype and np.array_equal(a, b), name
-        sample = name != "empty_batch"  # an empty batch launches nothing for the sample
-        assert moved == {"kmer_codes": 1 + sample + with_normal, "revcomp_kmers": 1,
-                         "unique_counts_sorted": sample, "subtract_sorted": sample}, name
+        for route in ("fused", "per_function"):  # the plan's, then the other, forced
+            before = dict(kmer_cuda.LAUNCHES)
+            got = kmer.sample_only_kmers(*args, **kw, device=card,
+                                         route=None if route == "fused" else route)
+            moved = {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before
+                     if kmer_cuda.LAUNCHES[n] != before[n]}
+            want = kmer.sample_only_kmers(*args, **kw, device="cpu")
+            for a, b in zip(want, got):
+                assert a.dtype == b.dtype and np.array_equal(a, b), (name, route)
+            sample = name != "empty_batch"  # an empty batch launches nothing for the sample
+            assert moved == ({"region_kmers": 1} if route == "fused" else
+                             {"kmer_codes": 1 + sample + with_normal, "revcomp_kmers": 1,
+                              **({"unique_counts_sorted": 1, "subtract_sorted": 1}
+                                 if sample else {})}), (name, route)
     assert len(got[0]) == 0 and len(want[0]) == 0
     assert len(kmer.sample_only_kmers(*cases[0][1], **kw, device=card)[0]) > 0
     before = kmer_cuda.LAUNCHES["kmer_codes"]
@@ -1070,6 +1075,134 @@ def test_per_region_kmers_on_card_matches_cpu(card):
     torch.cuda.synchronize()
     moved = {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before}
     assert moved == {"kmer_codes": 3, "revcomp_kmers": 1, "unique_counts_sorted": 1,
-                     "subtract_sorted": 1}
+                     "subtract_sorted": 1, "region_kmers": 0}
     _equal(tuple(want), tuple(g.cpu() for g in got))
     assert int((want[1] > 0).sum()) > 0
+
+
+# -- the region kernel (csrc/region_kmers.cu): a serial region's whole
+# -- sample_only_kmers in one launch ------------------------------------------
+
+from breakmer_tpu_torch.tools import kmer_time  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(kmer_time.REGION_CASES))
+def test_region_kernel_matches_plain(card, name):
+    """Each region case through sample_only_kmers on the card against the
+    plain chain: the plan's route (one launch of the region kernel and no
+    other where it fits, K1-K4 past the boundary), exact; then the fused
+    route forced, which launches or raises before any launch."""
+    args, kw = kmer_time.region_case(name)
+    want = kmer.sample_only_kmers_plain(*args, **kw, device=card)
+    plan = kmer_cuda.region_plan(args[0].shape, len(args[2]),
+                                 None if "normal_codes" not in kw else kw["normal_codes"].shape,
+                                 args[3], kmer_cuda.smem_optin(card))
+    before, routes = dict(kmer_cuda.LAUNCHES), dict(kmer.ROUTES)
+    got = kmer.sample_only_kmers(*args, **kw, device=card)
+    moved = {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before
+             if kmer_cuda.LAUNCHES[n] != before[n]}
+    for a, b in zip(want, got, strict=True):
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    assert kmer.ROUTES == dict(routes, **{plan.route: routes[plan.route] + 1})
+    assert (name == "boundary_over") == (plan.route == "per_function")
+    if plan.route == "fused":
+        assert moved == {"region_kmers": 1}
+    else:
+        assert moved["kmer_codes"] >= 2 and "region_kmers" not in moved
+        before = dict(kmer_cuda.LAUNCHES)
+        with pytest.raises(ValueError, match="shared memory"):
+            kmer.sample_only_kmers(*args, **kw, device=card, route="fused")
+        assert kmer_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_region_plan_bytes_are_the_kernels(card):
+    """kmer_cuda.region_smem_bytes, the plan's reckoning, equals the
+    launch's own (region_kmers_smem_bytes of the library) over sizes on
+    both sides of the card's limit, and the plan reads the card's limit."""
+    from breakmer_tpu_torch import _build
+
+    lib = _build.library()
+    assert kmer_cuda.smem_optin(card) == kmer_cuda.H100_SMEM_OPTIN or \
+        "H100" not in torch.cuda.get_device_name(card)
+    for R in (0, 1, 7, 200, 308, 309, 600):
+        for L, L_r, L_n, k in ((100, 1800, 102, 15), (37, 1001, 0, 11), (15, 30_000, 20, 1),
+                               (150, 15, 0, 15)):
+            want = kmer_cuda.region_smem_bytes(R * (L - k + 1), max(L, L_r, L_n))
+            assert lib.region_kmers_smem_bytes(R, L, L_r, L_n, k) == want, (R, L, L_r, L_n, k)
+    assert lib.region_kmers_smem_bytes(5, 10, 1800, 0, 11) == -1
+    assert lib.region_kmers_smem_bytes(5, 100, 1800, 0, 16) == -1
+
+
+@pytest.mark.cuda
+def test_region_kernel_refusals_launch_nothing(card):
+    """What the per-function route refuses, the plan's route and the fused
+    route refuse before any launch, with the same error: k past 15 or below 1, a reference or
+    reads shorter than k, lengths of another shape, an empty normal table
+    against sample windows."""
+    args, kw = kmer_time.region_case("serial")
+    codes, lengths, ref, k = args
+    before = dict(kmer_cuda.LAUNCHES)
+    cases = [((codes, lengths, ref, 16), kw, "capacity"), ((codes, lengths, ref, 0), kw, "k=0"),
+             ((codes, lengths, ref[:10], k), kw, "shorter"),
+             ((codes[:, :10], lengths, ref, k), kw, "shorter"),
+             ((codes, lengths[:5], ref, k), kw, "want"),
+             (args, dict(kw, normal_codes=kw["normal_codes"][:, :9]), "shorter"),
+             (args, dict(kw, normal_codes=kw["normal_codes"][:0],
+                         normal_lengths=kw["normal_lengths"][:0]), "width 0")]
+    for a, w, match in cases:
+        for route in (None, "fused"):
+            with pytest.raises(ValueError, match=match):
+                kmer.sample_only_kmers(*a, **w, device=card, route=route)
+        assert kmer_cuda.LAUNCHES == before, match
+        with pytest.raises(ValueError, match=match):  # (which may launch first)
+            kmer.sample_only_kmers(*a, **w, device=card, route="per_function")
+        before = dict(kmer_cuda.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_region_kernel_result_layout(card):
+    """The launch's own result buffer: the kept runs, the runs, then the
+    kept (value, count) pairs ascending by value, no pair past them."""
+    args, kw = kmer_time.region_case("serial")
+    segments, total = kmer_cuda.region_pack(args[0], args[1], args[2], kw["normal_codes"],
+                                            kw["normal_lengths"])
+    staged = kmer_cuda.region_stage(segments, total, card)
+    windows = args[0].shape[0] * (args[0].shape[1] - args[3] + 1)
+    out = kmer_cuda.region_run(staged, segments, args[3], kw["min_count"], windows).cpu().numpy()
+    kept, runs = int(out[0]), int(out[1])
+    pairs = out[2:2 + 2 * kept].reshape(-1, 2)
+    v = pairs[:, 0].view(np.uint32)
+    assert 0 < kept <= runs <= windows and (np.diff(v.astype(np.int64)) > 0).all()
+    assert (pairs[:, 1] >= kw["min_count"]).all()
+    want = kmer.sample_only_kmers_plain(*args, **kw, device="cpu")
+    assert sorted(zip(v.tolist(), pairs[:, 1].tolist())) == \
+        sorted(zip(want[0].tolist(), want[1].tolist()))
+
+
+@pytest.mark.cuda
+def test_a_card_fault_ends_a_run(card, tmp_path):
+    """A fault of the card (an index past a tensor's end, a device-side
+    assert) raises an error of ``_build.DEVICE_FAULTS`` in its process,
+    which the region isolation re-raises."""
+    import subprocess
+    import sys
+
+    script = tmp_path / "fault.py"
+    script.write_text(
+        "import torch\n"
+        "from breakmer_tpu_torch import _build\n"
+        "x = torch.zeros(4, device='cuda')\n"
+        "try:\n"
+        "    x[torch.tensor([10], device='cuda')] = 1\n"
+        "    torch.cuda.synchronize()\n"
+        "except Exception as exc:\n"
+        "    print(type(exc).__name__, isinstance(exc, _build.DEVICE_FAULTS))\n")
+    from pathlib import Path
+
+    root = Path(kmer.__file__).resolve().parents[2]
+    proc = subprocess.run([sys.executable, str(script)], cwd=root, capture_output=True,
+                          text=True, timeout=120, env={**__import__("os").environ,
+                                                       "PYTHONPATH": str(root)})
+    assert proc.stdout.split() == ["AcceleratorError", "True"], proc.stdout + proc.stderr
