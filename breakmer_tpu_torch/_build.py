@@ -141,9 +141,13 @@ def library() -> ctypes.CDLL:
             fn.argtypes = args + [vp]  # the stream last
         lib.region_kmers_launch.restype = i32
         lib.region_kmers_launch.argtypes = ([vp, vp, i32, i32, vp, vp, i32, vp, vp]
-                                            + [i32] * 4 + [vp, i64, vp])
+                                            + [i32] * 4 + [vp, i64, vp, i64, i32, vp, vp])
         lib.region_kmers_smem_bytes.restype = i64
-        lib.region_kmers_smem_bytes.argtypes = [i64] + [i32] * 4
+        lib.region_kmers_smem_bytes.argtypes = [i64] + [i32] * 5
+        lib.region_kmers_scratch_words.restype = i64
+        lib.region_kmers_scratch_words.argtypes = [i32] * 5
+        lib.region_kmers_max_clusters.restype = i32
+        lib.region_kmers_max_clusters.argtypes = [i32, i32]
         _lib = lib
     return _lib
 

@@ -21,11 +21,12 @@ one program: on the card one launch of the ``revcomp_kmers`` kernel.
 JAX package leaves its sorts to XLA's.
 
 ``sample_only_kmers``, the serial path's call a region, takes one of two
-routes on a card, chosen from the shapes before anything launches
-(``kmer_cuda.region_plan``): the whole composite in one launch of one
-block (``kmer_cuda.region_kmers``, ``csrc/region_kmers.cu``: codes, sort,
-run counts and subtraction in shared memory) where the region fits the
-block, else the chain of the functions above ("per_function"). That
+routes on a card, chosen from the shapes and the card's limits before
+anything launches (``kmer_cuda.region_plan``): the whole composite in one
+launch of one thread-block cluster (``kmer_cuda.region_kmers``,
+``csrc/region_kmers.cu``: codes, sort, run counts and subtraction in the
+CTAs' shared memory) where the region fits a cluster size the card runs,
+else the chain of the functions above ("per_function"). That
 route gives up "one launch a function, as XLA runs it" for this
 composite alone; no error gives way from one route to the other.
 
@@ -347,27 +348,30 @@ def sample_only_kmers(
     code, counts int32), host numpy arrays ready for the assembler.
 
     On the CPU it is :func:`sample_only_kmers_plain`. On a card the route
-    is ``kmer_cuda.region_plan``'s, chosen from the shapes before anything
-    launches, or ``route`` where given: "fused" is one launch of
-    ``kmer_cuda.region_kmers`` (which raises ``ValueError`` before any
-    launch for a region that does not fit), "per_function" the kernels
-    K1-K4 and ``torch.sort``. Each card call counts in ``ROUTES``."""
+    is ``kmer_cuda.card_plan``'s, chosen from the shapes and the card's
+    limits before anything launches, or ``route`` where given: "fused" is
+    one launch of ``kmer_cuda.region_kmers`` (a cluster of the plan's size;
+    it raises ``ValueError`` before any launch for a region that does not
+    fit), "per_function" the kernels K1-K4 and ``torch.sort``. The checks
+    and the plan run once a call. Each card call counts in ``ROUTES``."""
     device = torch.device(device)
     if device.type == "cpu":
         return sample_only_kmers_plain(sample_codes, sample_lengths, ref_codes, k, normal_codes,
                                        normal_lengths, min_count, device=device)
     if device.type != "cuda":
         raise ValueError(f"sample_only_kmers: no implementation for device {device}")
+    plan = None
     if route is None:
-        kmer_cuda.check_region(sample_codes, sample_lengths, int(np.size(ref_codes)),
-                                normal_codes, normal_lengths, k)
-        route = kmer_cuda.region_plan(
-            np.shape(sample_codes), int(np.size(ref_codes)),
-            None if normal_codes is None else np.shape(normal_codes), k,
-            kmer_cuda.smem_optin(device)).route
+        ref_len = int(np.size(ref_codes))
+        kmer_cuda.check_region(sample_codes, sample_lengths, ref_len, normal_codes,
+                               normal_lengths, k)
+        plan = kmer_cuda.card_plan(np.shape(sample_codes), ref_len,
+                                   None if normal_codes is None else np.shape(normal_codes), k,
+                                   device)
+        route = plan.route
     if route == "fused":
         v, c = kmer_cuda.region_kmers(sample_codes, sample_lengths, ref_codes, k, normal_codes,
-                                      normal_lengths, min_count, device=device)
+                                      normal_lengths, min_count, device=device, plan=plan)
     elif route == "per_function":
         v, c = _sample_only_chain(_DISPATCHED, sample_codes, sample_lengths, ref_codes, k,
                                   normal_codes, normal_lengths, device)

@@ -19,11 +19,12 @@ is 0xFFFFFFFF, as in ``ops/kmer.py``; rows [N] or [G, N] are taken row by
 row.
 
 ``region_kmers`` is a serial region's whole ``sample_only_kmers`` call in
-one launch of one block (``csrc/region_kmers.cu``): host numpy in, packed
-into one pinned buffer and copied to the card once, the kept (value,
-count) pairs copied back once. ``region_plan`` says, from the shapes
-alone and before anything touches the card, whether a region's layout
-fits the block's opt-in shared memory; ``ops/kmer.py`` routes by it.
+one launch of one thread-block cluster (``csrc/region_kmers.cu``): host
+numpy in, packed into one pinned buffer and copied to the card once, the
+kept (value, count) pairs copied back once. ``region_plan`` says, from
+the shapes and the card's limits alone and before anything touches the
+card, whether a region's layout fits a CTA's opt-in shared memory at a
+cluster size the card runs, and at which; ``ops/kmer.py`` routes by it.
 """
 
 from __future__ import annotations
@@ -209,59 +210,141 @@ def subtract_sorted(
 
 # csrc/region_kmers.cu's layout constants (tests/test_torch_region_kmers.py
 # reads them from the source): 32 warps of uint16 offsets for 256 digits,
-# 64 words of counters, and at most 65,535 sample windows
-REGION_WARPS, REGION_BINS, REGION_MISC_WORDS, REGION_MAX_KEYS = 32, 256, 64, 65535
+# 672 words of counters and tables (and 256 digit totals a CTA of the
+# cluster), at most 65,535 sample windows a CTA, and the
+# cluster sizes the launch takes (16 by the non-portable size)
+REGION_WARPS, REGION_BINS, REGION_MISC_WORDS, REGION_MAX_KEYS = 32, 256, 672, 65535
+REGION_CLUSTERS = (1, 2, 4, 8, 16)
 H100_SMEM_OPTIN = 232_448  # an H100's opt-in shared memory a block (227 KB)
+# the cluster sizes an H100 runs at its opt-in shared memory
+# (region_kmers_max_clusters >= 1 at each, NVIDIA H100 80GB HBM3)
+H100_CLUSTERS = REGION_CLUSTERS
+# the cluster size a region's sample windows pay for: the last entry whose
+# windows the sample reaches (tools/kmer_time.py --sweep on an NVIDIA H100
+# 80GB HBM3 at 700 W, a normal of 4/5 the sample's reads: one block the
+# fastest to 20 reads of 100 bases, level with 8 CTAs at 30, 8 CTAs the
+# fastest at 47, 16 CTAs from 70 reads up)
+CLUSTER_BY_WINDOWS = ((0, 1), (2_600, 8), (6_000, 16))
 
 
 @dataclass(frozen=True)
 class RegionPlan:
     """The route of one region's ``sample_only_kmers`` on the card:
-    "fused" (``region_kmers``, one launch) where ``smem_bytes`` fit
-    ``limit`` and the sample's windows fit the sort's offsets, else
-    "per_function" (K1-K4 and ``torch.sort``)."""
+    "fused" (``region_kmers``, one launch of a cluster of ``cluster``
+    CTAs) where a CTA's ``smem_bytes`` fit ``limit`` and its sample windows
+    fit the sort's offsets, else "per_function" (K1-K4 and ``torch.sort``;
+    ``cluster`` 0, ``smem_bytes`` at the largest cluster)."""
 
     route: str
     smem_bytes: int
     limit: int
     windows: int
+    cluster: int
 
 
-def region_smem_bytes(windows: int, longest: int) -> int:
-    """``region_layout(...).bytes`` of ``csrc/region_kmers.cu``: the stage
-    and scratch X (at least ``windows`` + 1 words, and a row of
-    ``longest`` bytes in 16-byte lines), the sample's codes S, their bit
-    map B, the digit offsets and the counters."""
-    x_lines = max(-(-(windows + 1) // 4), -(-(longest + 30) // 16))
-    s_words = -(-windows // 4) * 4
-    b_words = -(-(-(-windows // 32)) // 4) * 4
+def region_smem_bytes(rows: int, row_windows: int, longest: int, cluster: int = 1) -> int:
+    """``region_layout(...).bytes`` of ``csrc/region_kmers.cu``, a CTA's
+    shared memory for ``rows`` sample rows of ``row_windows`` windows in a
+    cluster of ``cluster`` CTAs: the stage and scratch X (at least a
+    CTA's rows' windows + 1 words, and a row of ``longest`` bytes in
+    16-byte lines), the CTA's codes S (its rows' windows), the bit map B
+    of its share of the sorted codes, the digit offsets, the counters and
+    tables, and the cluster's 256 digit totals a CTA."""
+    share, keys = -(-(rows * row_windows) // cluster), -(-rows // cluster) * row_windows
+    x_lines = max(-(-(keys + 1) // 4), -(-(longest + 30) // 16))
+    s_words = -(-keys // 4) * 4
+    b_words = -(-(-(-share // 32)) // 4) * 4
     return (16 * x_lines + 4 * (s_words + b_words) + 2 * REGION_WARPS * REGION_BINS
-            + 4 * REGION_MISC_WORDS)
+            + 4 * (REGION_MISC_WORDS + REGION_BINS * cluster))
+
+
+def region_scratch_words(ref_len: int, normal_shape: Optional[Tuple[int, int]], k: int,
+                         cluster: int) -> int:
+    """``region_kmers_scratch_words`` of ``csrc/region_kmers.cu``: the
+    global scratch in which each CTA of a cluster leaves its share of the
+    reference's and the normal's codes, then bins them (and the
+    reference's reverse complements) by the CTA that owns their value: a
+    CTA's 24 header words, its share of the reference's windows and of the
+    normal's rows' windows (each in whole 16-byte lines), and twice the
+    first and once the second for the bins; none for one block."""
+    if cluster == 1:
+        return 0
+    R_n, L_n = normal_shape or (0, 0)
+    ref_cap = -(-(-(-(ref_len - k + 1) // cluster)) // 4) * 4
+    norm_cap = -(-(-(-R_n // cluster) * (L_n - k + 1 if R_n else 0)) // 4) * 4
+    return cluster * (24 + 3 * ref_cap + 2 * norm_cap)
+
+
+def region_cluster(windows: int) -> int:
+    """The cluster size ``CLUSTER_BY_WINDOWS`` gives a sample of
+    ``windows`` windows."""
+    return [c for w, c in CLUSTER_BY_WINDOWS if windows >= w][-1]
 
 
 def region_plan(sample_shape: Tuple[int, int], ref_len: int,
-                normal_shape: Optional[Tuple[int, int]], k: int, limit: int) -> RegionPlan:
-    """The route for a sample [R, L], a reference of ``ref_len`` bases and
-    a normal [Rn, Ln] (None: none) at k, against ``limit`` bytes of shared
-    memory a block; shapes with L or ``ref_len`` shorter than k are the
-    caller's to refuse first."""
+                normal_shape: Optional[Tuple[int, int]], k: int, limit: int,
+                clusters: Tuple[int, ...] = H100_CLUSTERS,
+                cluster: Optional[int] = None) -> RegionPlan:
+    """The route and cluster size for a sample [R, L], a reference of
+    ``ref_len`` bases and a normal [Rn, Ln] (None: none) at k, against
+    ``limit`` bytes of shared memory a CTA and the cluster sizes
+    ``clusters`` the card runs: the smallest of them, at least
+    ``region_cluster``'s (or the largest there is), whose layout fits; or
+    ``cluster`` alone, where given. Shapes with L or ``ref_len`` shorter
+    than k are the caller's to refuse first."""
     (R, L), ln = sample_shape, (0 if normal_shape is None else normal_shape[1])
-    windows = R * (L - k + 1)
-    smem = region_smem_bytes(windows, max(L, ref_len, ln))
-    fits = smem <= limit and windows <= REGION_MAX_KEYS
-    return RegionPlan("fused" if fits else "per_function", smem, limit, windows)
+    W = L - k + 1
+    windows, longest = R * W, max(L, ref_len, ln)
+    sizes = sorted(c for c in clusters if c in REGION_CLUSTERS)
+    if cluster is not None:
+        sizes = [c for c in sizes if c == cluster]
+    elif sizes:
+        least = min(region_cluster(windows), sizes[-1])
+        sizes = [c for c in sizes if c >= least]
+    for c in sizes:
+        smem = region_smem_bytes(R, W, longest, c)
+        if smem <= limit and -(-R // c) * W <= REGION_MAX_KEYS:
+            return RegionPlan("fused", smem, limit, windows, c)
+    widest = max(sizes or [max(REGION_CLUSTERS)])
+    return RegionPlan("per_function", region_smem_bytes(R, W, longest, widest), limit,
+                      windows, 0)
 
 
 _SMEM_OPTIN = {}  # card index: its opt-in shared memory a block
+_CLUSTERS = {}    # card index: the region kernel's cluster sizes it runs
+
+
+def _index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
 
 
 def smem_optin(device) -> int:
     """The card's opt-in shared memory a block, in bytes (asked once)."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
+    index = _index(device)
     if index not in _SMEM_OPTIN:
         _SMEM_OPTIN[index] = torch.cuda.get_device_properties(index).shared_memory_per_block_optin
     return _SMEM_OPTIN[index]
+
+
+def cluster_sizes(device) -> Tuple[int, ...]:
+    """The cluster sizes of ``REGION_CLUSTERS`` the card runs the region
+    kernel at, at its opt-in shared memory (asked once; it builds and
+    loads the kernel library, and launches nothing)."""
+    index = _index(device)
+    if index not in _CLUSTERS:
+        lib = _build.library()
+        _CLUSTERS[index] = tuple(c for c in REGION_CLUSTERS
+                                 if lib.region_kmers_max_clusters(c, index) >= 1)
+    return _CLUSTERS[index]
+
+
+def card_plan(sample_shape, ref_len, normal_shape, k, device,
+              cluster: Optional[int] = None) -> RegionPlan:
+    """``region_plan`` against card ``device``'s shared memory and cluster
+    sizes."""
+    return region_plan(sample_shape, ref_len, normal_shape, k, smem_optin(device),
+                       cluster_sizes(device), cluster)
 
 
 def region_pack(sample_codes, sample_lengths, ref_codes, normal_codes=None,
@@ -286,7 +369,7 @@ def region_pack(sample_codes, sample_lengths, ref_codes, normal_codes=None,
     return segments, at
 
 
-_PINNED = threading.local()  # a thread's reused pinned staging buffers
+_PINNED = threading.local()  # a thread's reused pinned staging buffers (and card scratch)
 
 
 def _pinned(name: str, nbytes: int) -> torch.Tensor:
@@ -320,29 +403,47 @@ def check_region(sample_codes, sample_lengths, ref_len, normal_codes, normal_len
 
 
 def region_kmers(sample_codes, sample_lengths, ref_codes, k: int, normal_codes=None,
-                 normal_lengths=None, min_count: int = 2, *, device
+                 normal_lengths=None, min_count: int = 2, *, device,
+                 plan: Optional[RegionPlan] = None, cluster: Optional[int] = None
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """``ops.kmer.sample_only_kmers`` on card ``device`` in one launch:
     (values uint32, counts int32) of the kept runs, ascending by value
     (the caller orders them). Raises ``ValueError`` before anything touches
     the card for what the per-function route refuses and for a region
-    whose plan is not "fused" on this card."""
-    ref_len = int(np.size(ref_codes))
-    check_region(sample_codes, sample_lengths, ref_len, normal_codes, normal_lengths, k)
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"region_kmers: device {device}; it runs on a CUDA device")
-    shape = np.shape(sample_codes)
-    plan = region_plan(shape, ref_len, None if normal_codes is None else np.shape(normal_codes),
-                       k, smem_optin(device))
+    whose plan is not "fused" on this card. ``plan``: the caller's
+    ``card_plan`` of these inputs, made after ``check_region`` (neither is
+    then made again); ``cluster`` forces a cluster size (the plan made for
+    it alone)."""
+    if plan is None:
+        ref_len = int(np.size(ref_codes))
+        check_region(sample_codes, sample_lengths, ref_len, normal_codes, normal_lengths, k)
+        if torch.device(device).type != "cuda":
+            raise ValueError(f"region_kmers: device {device}; it runs on a CUDA device")
+        plan = card_plan(np.shape(sample_codes), ref_len,
+                         None if normal_codes is None else np.shape(normal_codes), k, device,
+                         cluster)
     if plan.route != "fused":
         raise ValueError(f"region_kmers: a sample of {plan.windows} windows needs "
-                         f"{plan.smem_bytes} bytes of shared memory a block, the card has "
-                         f"{plan.limit} (the sort takes {REGION_MAX_KEYS} windows at most)")
+                         f"{plan.smem_bytes} bytes of shared memory a CTA"
+                         f"{'' if cluster is None else f' in a cluster of {cluster}'}, the card "
+                         f"has {plan.limit} (a CTA's sort takes {REGION_MAX_KEYS} windows at "
+                         "most)")
     segments, total = region_pack(sample_codes, sample_lengths, ref_codes, normal_codes,
                                   normal_lengths)
     staged = region_stage(segments, total, device)
-    return region_fetch(region_run(staged, segments, k, min_count, plan.windows))
+    return region_fetch(region_run(staged, segments, k, min_count, plan.windows, plan.cluster))
+
+
+def _scratch(device: torch.device, words: int) -> torch.Tensor:
+    """The thread's scratch on card ``device``, at least ``words`` int32
+    (kept between calls: launches on one stream use it one after another)."""
+    key = f"scratch{device.index}"
+    buf = getattr(_PINNED, key, None)
+    if buf is None or buf.numel() < words:
+        buf = torch.empty(1 << max(12, (words - 1).bit_length()), dtype=torch.int32,
+                          device=device)
+        setattr(_PINNED, key, buf)
+    return buf[:words]
 
 
 def region_stage(segments, total: int, device) -> torch.Tensor:
@@ -356,13 +457,25 @@ def region_stage(segments, total: int, device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
-def region_run(staged: torch.Tensor, segments, k: int, min_count: int,
-               windows: int) -> torch.Tensor:
-    """One launch on the staged inputs -> the result buffer on the card,
-    int32 [2 + 2 cap]: the kept runs, the runs, then (value, count) pairs.
-    cap = windows // max(min_count, 1): each kept run holds at least
-    min_count of the sample's windows."""
-    _on_one_card(REGION_KERNEL, staged)
+REGION_PHASES = 11  # the kernel's clock stamps a CTA
+
+
+def region_run(staged: torch.Tensor, segments, k: int, min_count: int, windows: int,
+               cluster: int = 1, clocks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of a cluster of ``cluster`` CTAs on the staged inputs ->
+    the result buffer on the card, int32 [2 + 2 cap]: the kept runs, the
+    runs, then (value, count) pairs. cap = windows // max(min_count, 1):
+    each kept run holds at least min_count of the sample's windows. A
+    cluster's CTAs share their reference and normal codes through the
+    thread's scratch on the card (``region_scratch_words``).
+    ``clocks``: None, or an int64 [cluster, REGION_PHASES] tensor on the
+    card that takes each CTA's clock64 stamps after each phase."""
+    _on_one_card(REGION_KERNEL, staged, *([] if clocks is None else [clocks]))
+    if clocks is not None and (clocks.dtype != torch.int64
+                               or clocks.shape != (cluster, REGION_PHASES)
+                               or not clocks.is_contiguous()):
+        raise ValueError(f"region_run: clocks {clocks.dtype} {tuple(clocks.shape)}; want a "
+                         f"contiguous int64 [{cluster}, {REGION_PHASES}]")
     seg = {name: (at, a) for name, at, a in segments}
     base = staged.data_ptr()
     (R, L), L_r = seg["sample_codes"][1].shape, seg["ref_codes"][1].shape[1]
@@ -370,13 +483,17 @@ def region_run(staged: torch.Tensor, segments, k: int, min_count: int,
     R_n, L_n = seg["normal_codes"][1].shape if normal else (0, 0)
     cap = windows // max(min_count, 1)
     out = torch.empty(2 + 2 * cap, dtype=torch.int32, device=staged.device)
+    words = region_scratch_words(L_r, (R_n, L_n) if normal else None, k, cluster)
+    scratch = _scratch(staged.device, words) if words else None
     _launch(REGION_KERNEL, staged.get_device(),
-            lambda: f"region_kmers (R={R}, L={L}, L_r={L_r}, normal {R_n}x{L_n}, k={k})",
+            lambda: f"region_kmers (R={R}, L={L}, L_r={L_r}, normal {R_n}x{L_n}, k={k}, "
+                    f"cluster {cluster})",
             base + seg["sample_codes"][0], base + seg["sample_lengths"][0], R, L,
             base + seg["ref_codes"][0], base + seg["ref_length"][0], L_r,
             base + seg["normal_codes"][0] if normal else None,
             base + seg["normal_lengths"][0] if normal else None, R_n, L_n, k, min_count,
-            out.data_ptr(), cap)
+            out.data_ptr(), cap, None if scratch is None else scratch.data_ptr(), words, cluster,
+            None if clocks is None else clocks.data_ptr())
     return out
 
 

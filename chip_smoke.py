@@ -11,14 +11,15 @@ phase's wall time is printed):
      custom scoring (one set past the packed row key's range), at the
      launch plan's form and rows a lane and at each R of both forms
      (ticket: 4, 8; block: 2) forced, packed and unpacked; median of 5
-     CUDA-event timings of each, with GCUPS, the bound and the share of it
-     the kernel reaches; the serial path's largest shapes (1x256x512,
+     CUDA-event timings of each (of the plain version: at the headline
+     shape; one timing elsewhere), with GCUPS, the bound and the share of
+     it the kernel reaches; the serial path's largest shapes (1x256x512,
      1x256x1024, 12x512x1024) in both forms, exact, then timed in turns;
      the step-cost table behind the plan's clock model; one pair at each
      of realign's pad tiers at every R of both forms;
   4. the k-mer engine on the card against the CPU (2,000 x 150 bp reads,
-     3 kb region, matched normal: past the region kernel's boundary, the
-     per-function route); then each of the four k-mer kernels
+     3 kb region, matched normal: the plan's route, a cluster of 16 CTAs,
+     and the per-function route forced); then each of the four k-mer kernels
      (csrc/kmer.cu) and the both-strand form of revcomp_kmers against its
      plain version, exact, at a serial region's shapes and the batch
      step's (unique_counts_sorted on tiled errored reads and on random
@@ -26,10 +27,13 @@ phase's wall time is printed):
      plain version's, the bound and one torch call's where one computes
      the same function; each at its designs' span and tile edges; the
      region kernel (csrc/region_kmers.cu, a serial region's whole
-     sample_only_kmers in one launch) exact against the plain chain on
-     every region case of tools/kmer_time.py (each through the plan's
-     route, the fused route forced where it fits), timed at the serial
-     shape; and the CUDA kernels one sample_only_kmers call runs
+     sample_only_kmers in one launch of a thread-block cluster) exact
+     against the plain chain on every region case of tools/kmer_time.py
+     (each through the plan's route, and forced at each cluster size the
+     card runs that takes it; one read either side of the first design's
+     limit and of the plan's), timed at the serial shape at the plan's
+     cluster size and at one block, with its phase clocks; and the CUDA
+     kernels one sample_only_kmers call runs
      (profiler, in a fresh process, on the plan's route and on the
      per-function route forced, and in this one, each hand kernel's
      activities beside its launches: the fresh process must see every
@@ -49,8 +53,9 @@ phase's wall time is printed):
      in its own form and in the ticket form, in turns, beside its bound
      (the timed run records nothing); then every region's recorded k-mer
      call through the region kernel, exact against the plain chain, and
-     the routes of the panel's regions and of bench_panel's 20 genes run
-     serially on the card;
+     the routes and cluster sizes of the panel's regions, of bench_panel's
+     20 genes and of tools/bench_panel_scaling's two deep tiers at 100
+     genes, each run serially on the card (their fused regions exact too);
   7. the probe kernels against their plain versions on the card, exact:
      the stripped SW loop in both forms at steps 1, 7, 255 and the
      default, every int16 op of both int16 probes, the running max; each
@@ -228,7 +233,9 @@ def phase_sw(dev, card):
     int32_ops_per_s()
     print(f"  int32 peak {_PEAK['sms']} SMs x 64 x {_PEAK['mhz']:.0f} MHz = "
           f"{_PEAK['ops'] / 1e12:.3f} T ops/s; SW bound at {SW_OPS} ops a cell", flush=True)
+    t_shapes = time.perf_counter()
     for B, Lq, Lt in SW_SHAPES:
+        t_shape = time.perf_counter()
         cases = [("planted", 0.0, SWParams(), (False, True)),
                  ("1% N", 0.01, SWParams(), (False,)),
                  ("params 3,2,4,2", 0.0, SWParams(3, 2, 4, 2), (False, True)),
@@ -260,7 +267,10 @@ def phase_sw(dev, card):
         plan = sw_cuda.launch_plan(B, Lq, Lt, sms=_PEAK["sms"])
         k_ms = cuda_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True))
         d_ms = queued_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True), n=10)
-        p_ms = cuda_ms(lambda: sw_score(q, t))
+        # the plain version's time: five calls at the headline shape, one
+        # elsewhere (each takes seconds at the large shapes)
+        p_ms = cuda_ms(lambda: sw_score(q, t)) if (B, Lq, Lt) == HEADLINE else once_ms(
+            lambda: sw_score(q, t))
         if (B, Lq, Lt) == HEADLINE:  # the profiler's reading of a ctypes launch
             prof_ms = device_us(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True), n=20) / 1e3
             print(f"  SW {B}x{Lq}x{Lt}: device ms, torch.profiler (timing.device_us) "
@@ -279,14 +289,32 @@ def phase_sw(dev, card):
               f"{plan.strips} strips, {plan.warps} warps), bound {b_ms:.4f} ms "
               f"({b_by}), {b_ms / d_ms:.1%} of the bound on the device; device ms by R "
               + ", ".join(f"{R}: {ms:.4f}" for R, ms in by_r.items())
-              + f"; plain {p_ms:.2f} ms ({cells / p_ms / 1e6:.4f} GCUPS) [{card}]",
-              flush=True)
+              + f"; plain {p_ms:.2f} ms ({cells / p_ms / 1e6:.4f} GCUPS); "
+              f"{time.perf_counter() - t_shape:.1f} s [{card}]", flush=True)
+    t_parts = {"shapes": time.perf_counter() - t_shapes}
+    t0 = time.perf_counter()
     turns = sw_form_turns(dev, card, rng)
     max_err = max([max_err] + [r["max_abs_err"] for r in turns])
+    t_parts["form turns"], t0 = time.perf_counter() - t0, time.perf_counter()
     step_cycles = sw_step_costs(dev, card)
+    t_parts["step costs"], t0 = time.perf_counter() - t0, time.perf_counter()
     tiers = sw_tier_grid(dev, card, rng)
     torch.cuda.synchronize()
+    t_parts["tier grid"] = time.perf_counter() - t0
+    print("  SW phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in t_parts.items()),
+          flush=True)
     return rows, max_err, dict(form_turns=turns, step_cycles=step_cycles, tier_grid=tiers)
+
+
+def once_ms(fn) -> float:
+    """One call of fn() between two CUDA events, in ms."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def sw_tier_grid(dev, card, rng):
@@ -666,13 +694,16 @@ def region_bound(args, kw, kept: int):
 
 def region_kernel_row(dev, card):
     """The region kernel (csrc/region_kmers.cu, a serial region's whole
-    sample_only_kmers in one launch) against the plain chain on the card,
-    exact: at the serial shape (tools/kmer_time.py's region cases), timed
-    (device ms of queued launches on staged inputs, events around one
-    launch, the whole call's host ms with its two copies, the plain
-    chain's); then every region case, each through the plan's route (one
-    launch of the region kernel where it fits, the per-function kernels
-    past the boundary) and the fused route forced on those that fit."""
+    sample_only_kmers in one launch of a thread-block cluster) against the
+    plain chain on the card, exact: every region case (tools/kmer_time.py's,
+    among them one read either side of the first design's limit and of the
+    plan's) through the plan's route (one launch of the region kernel
+    where it fits, the per-function kernels past the plan's limit), then
+    the fused route forced at each cluster size the card runs that takes
+    the case; at the serial shape, timed at the plan's cluster size and at
+    one block (device ms of queued launches on staged inputs, events
+    around one launch, the whole call's host ms with its two copies, the
+    plain chain's) with the phase clocks at the plan's size."""
     from breakmer_tpu_torch.ops import kmer, kmer_cuda
     from breakmer_tpu_torch.timing import cuda_ms, queued_ms
     from breakmer_tpu_torch.tools import kmer_time
@@ -684,54 +715,68 @@ def region_kernel_row(dev, card):
             fn()
         return (time.perf_counter() - t0) / reps * 1e3
 
+    def same(want, got):
+        return all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(want, got))
+
+    sizes = kmer_cuda.cluster_sizes(dev)
     routes = {"fused": 0, "per_function": 0}
+    held = {}  # case: the cluster sizes it was held at, forced
     for name in kmer_time.REGION_CASES:
         args, kw = kmer_time.region_case(name)
         want = kmer.sample_only_kmers_plain(*args, **kw, device=dev)
-        normal = kw.get("normal_codes")
-        plan = kmer_cuda.region_plan(args[0].shape, len(args[2]),
-                                     None if normal is None else normal.shape, args[3],
-                                     kmer_cuda.smem_optin(dev))
+        plan, _ = kmer_time.plan_of(args, kw)
         before = dict(kmer_cuda.LAUNCHES)
         got = kmer.sample_only_kmers(*args, **kw, device=dev)
         moved = {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before
                  if kmer_cuda.LAUNCHES[n] != before[n]}
-        check(all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(want, got)),
-              f"region_kmers ({name}): the plan's route != plain")
+        check(same(want, got), f"region_kmers ({name}): the plan's route != plain")
         check((moved == {"region_kmers": 1}) == (plan.route == "fused"),
               f"region_kmers ({name}): launches {moved} on the {plan.route} route")
         routes[plan.route] += 1
-        if plan.route == "fused":
-            got = kmer.sample_only_kmers(*args, **kw, device=dev, route="fused")
-            check(all(np.array_equal(a, b) for a, b in zip(want, got)),
-                  f"region_kmers ({name}), forced: kernel != plain")
+        held[name] = []
+        for C in sizes:
+            if kmer_time.plan_of(args, kw, C)[0].route == "fused":
+                v, c = kmer_cuda.region_kmers(*args, **kw, device=dev, cluster=C)
+                check(same(want, kmer._by_count(v, c, kw["min_count"])),
+                      f"region_kmers ({name}), forced to {C} CTAs: kernel != plain")
+                held[name].append(C)
+    for name in ("old_limit_fits", "old_limit_over", "past_old_limit", "deep_250", "serial"):
+        check(len(held[name]) > 0 and held[name][-1] > 1,
+              f"region_kmers ({name}): held at no cluster: {held[name]}")
+    check(held["boundary_over"] == [], "region_kmers: a size took the plan's boundary_over")
     args, kw = kmer_time.region_case("serial")
-    segments, total = kmer_cuda.region_pack(args[0], args[1], args[2], kw["normal_codes"],
-                                            kw["normal_lengths"])
-    staged = kmer_cuda.region_stage(segments, total, dev)
-    windows = args[0].shape[0] * (args[0].shape[1] - args[3] + 1)
-
-    def launch():
-        return kmer_cuda.region_run(staged, segments, args[3], kw["min_count"], windows)
-
+    plan, C = kmer_time.plan_of(args, kw)
+    check(C > 1, f"region_kmers: the serial shape's plan is a cluster of {C}")
+    launch, _ = kmer_time.region_launcher(args, kw)
+    one_block, _ = kmer_time.region_launcher(args, kw, 1)
     want = kmer.sample_only_kmers_plain(*args, **kw, device=dev)
-    r = dict(shape=[list(np.shape(a)) for _, _, a in segments], max_abs_err=0,
-             ms=cuda_ms(launch), device_ms=queued_ms(launch),
-             call_ms=wall_ms(lambda: kmer.sample_only_kmers(*args, **kw, device=dev)),
+    median = kmer_time.region_inputs(np.random.default_rng(0), R=47, L=101, normal=(40, 101))
+    r = dict(shape=[list(np.shape(args[0])), len(args[2]), list(np.shape(kw["normal_codes"]))],
+             max_abs_err=0, cluster=C, cluster_sizes=list(sizes), ms=cuda_ms(launch),
+             device_ms=queued_ms(launch), one_block_device_ms=queued_ms(one_block),
+             call_ms=kmer_time.call_us(lambda: kmer.sample_only_kmers(*args, **kw, device=dev))
+             / 1e3,
+             median_region_call_ms=kmer_time.call_us(
+                 lambda: kmer.sample_only_kmers(*median[0], **median[1], device=dev)) / 1e3,
              plain_ms=wall_ms(lambda: kmer.sample_only_kmers_plain(*args, **kw, device=dev), 5),
              library_ms=None, library_device_ms=None, bound=region_bound(args, kw, len(want[0])),
-             region_cases=routes, smem_bytes=kmer_cuda.region_plan(
-                 args[0].shape, len(args[2]), kw["normal_codes"].shape, args[3],
-                 kmer_cuda.smem_optin(dev)).smem_bytes)
+             region_cases=routes, held_at=held, smem_bytes=plan.smem_bytes,
+             phase_clocks=kmer_time.phase_clocks("serial"))
     r["plain_device_ms"] = None
     r["bound_share"] = r["bound"][0] / r["device_ms"]
-    print(f"  region_kmers serial {r['shape']}: kernel == plain ({len(want[0])} kept); device "
-          f"{r['device_ms']:.4f} ms (queued), one launch {r['ms']:.4f} ms (events), a call "
-          f"{r['call_ms']:.4f} ms (host clock, its two copies and its wait), plain chain "
-          f"{r['plain_ms']:.4f} ms; bound {r['bound'][0]:.5f} ms ({r['bound'][1]}), "
-          f"{100 * r['bound_share']:.2f} % of the device time; {r['smem_bytes']} bytes of "
-          f"shared memory; library none; the {len(kmer_time.REGION_CASES)} region cases exact, "
-          f"routes {routes} [{card}]", flush=True)
+    print(f"  region_kmers serial {r['shape']}: kernel == plain ({len(want[0])} kept) at the "
+          f"plan's cluster of {C} CTAs ({plan.smem_bytes} bytes of shared memory a CTA); "
+          f"device {r['device_ms']:.4f} ms (queued; one block {r['one_block_device_ms']:.4f}), "
+          f"one launch {r['ms']:.4f} ms (events), a call {r['call_ms']:.4f} ms (host clock, its "
+          f"two copies and its wait; the panel's median region {r['median_region_call_ms']:.4f}"
+          f"), plain chain {r['plain_ms']:.4f} ms; bound "
+          f"{r['bound'][0]:.5f} ms ({r['bound'][1]}), {100 * r['bound_share']:.2f} % of the "
+          f"device time; library none [{card}]", flush=True)
+    print(f"  region_kmers phase clocks at {C} CTAs (cycles, the most any CTA took): "
+          f"{r['phase_clocks']['cycles']} [{card}]", flush=True)
+    print(f"  region_kmers: the card runs cluster sizes {list(sizes)}; the "
+          f"{len(kmer_time.REGION_CASES)} region cases exact on the plan's routes {routes}, and "
+          f"forced at every size that takes them: {held} [{card}]", flush=True)
     return r
 
 
@@ -920,6 +965,14 @@ def phase_kmer(dev, card):
     for a, b in zip(want, got):
         check(a.dtype == b.dtype and np.array_equal(a, b), "k-mer engine: CUDA != CPU")
     check(len(got[0]) > 0, "k-mer engine: no sample-only k-mers")
+    for a, b in zip(want, sample_only_kmers(*args, **kw, device=dev, route="per_function")):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              "k-mer engine, the per-function route: CUDA != CPU")
+    from breakmer_tpu_torch.tools.kmer_time import plan_of
+
+    plan, C = plan_of(args, kw)
+    print(f"  kmer: the plan's route {plan.route} at {C} CTAs; the per-function route forced "
+          "== CPU too", flush=True)
     t0 = time.perf_counter()
     sample_only_kmers(*args, **kw, device=dev)
     ms = (time.perf_counter() - t0) * 1e3
@@ -999,19 +1052,21 @@ class KmerCalls:
 def replay_regions(calls, card, label):
     """Every recorded serial call (a region's arguments) through the region
     kernel, the fused route forced where its plan fuses, exact against
-    the plain chain on the card; the plan's routes counted; then the
-    fused regions' launches alone, on inputs staged beforehand, back to
-    back between two CUDA events (their summed device time)."""
-    from breakmer_tpu_torch.ops import kmer, kmer_cuda
+    the plain chain on the card; the plan's routes and cluster sizes
+    counted; then the fused regions' launches alone, on inputs staged
+    beforehand, back to back (tools/kmer_time.back_to_back_ms: queued
+    behind a sleep, between two CUDA events; their summed device time)."""
+    from breakmer_tpu_torch.ops import kmer
+
+    from breakmer_tpu_torch.tools import kmer_time
 
     dev = card0()
     routes = {"fused": 0, "per_function": 0}
+    clusters = {}  # the plan's cluster size: its fused regions
     staged = []
     for args, kw in calls:
         normal = kw.get("normal_codes")
-        plan = kmer_cuda.region_plan(np.shape(args[0]), len(args[2]),
-                                     None if normal is None else np.shape(normal), args[3],
-                                     kmer_cuda.smem_optin(dev))
+        plan, _ = kmer_time.plan_of(args, kw)
         routes[plan.route] += 1
         if plan.route == "fused":
             kw = {k: v for k, v in kw.items() if k != "device"}
@@ -1019,22 +1074,14 @@ def replay_regions(calls, card, label):
             got = kmer.sample_only_kmers(*args, **kw, device=dev, route="fused")
             check(all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(want, got)),
                   f"{label}: region kernel != plain on a region of {np.shape(args[0])}")
-            segments, total = kmer_cuda.region_pack(args[0], args[1], args[2], normal,
-                                                    kw.get("normal_lengths"))
-            staged.append((kmer_cuda.region_stage(segments, total, dev), segments, args[3],
-                           kw["min_count"], plan.windows))
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for x in staged:
-        kmer_cuda.region_run(*x)
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end)
+            launch, _ = kmer_time.region_launcher(args, kw)
+            staged.append(launch)
+            clusters[plan.cluster] = clusters.get(plan.cluster, 0) + 1
+    ms = kmer_time.back_to_back_ms(staged)
     print(f"  {label}: the region kernel == plain on each of the {routes['fused']} fused "
-          f"regions; routes by the plan {routes}; their {len(staged)} launches back to back "
-          f"{ms:.4f} ms (events) [{card}]", flush=True)
-    return dict(routes, launches_ms=ms)
+          f"regions; routes by the plan {routes}, cluster sizes {clusters}; their "
+          f"{len(staged)} launches back to back {ms:.4f} ms (events) [{card}]", flush=True)
+    return dict(routes, launches_ms=ms, clusters={str(c): n for c, n in sorted(clusters.items())})
 
 
 def run_panel(cfg_kwargs, out: Path, device: str):
@@ -1154,8 +1201,40 @@ def phase_slice_scale(card, panel):
     by_shape = rec.by_shape("panel100 serial", card)
     torch.cuda.synchronize()
     routes = {"panel100": replay_regions(kmer_calls.args, card, "panel100 serial regions"),
-              "bench_panel20": bench_panel_routes(card)}
+              "bench_panel20": bench_panel_routes(card), **deep_tier_routes(card)}
     return launches, by_shape, kmer_launches, routes
+
+
+def deep_tier_routes(card):
+    """tools/bench_panel_scaling's deep tiers (read step 2 with 100-base
+    reads, read step 1 with 250-base reads) at 100 genes on the serial
+    path on the card: each region's route, counted, and the region kernel
+    exact against the plain chain on each fused region; fails if a region
+    that the plan fuses took another route."""
+    from breakmer_tpu_torch import bench_panel
+    from breakmer_tpu_torch.runner import Runner
+    from breakmer_tpu_torch.tools.bench_panel_scaling import DEEP_TIERS
+
+    out = {}
+    for step, read_len in DEEP_TIERS:
+        label = f"deep tier (read step {step}, {read_len}-base reads), 100 genes serial"
+        work = WORK / f"deep_{step}_{read_len}"
+        work.mkdir(parents=True)
+        cfg = bench_panel.build_panel(work, 100, step, read_len=read_len, device="cuda")
+        runner = Runner(type(cfg)(**{**cfg.__dict__, "batch_regions": False}))
+        runner.setup()
+        with KmerCalls(record=True) as calls:
+            runner.run()
+        torch.cuda.synchronize()
+        check(not any(r.error for r in runner.results), f"{label}: region errors")
+        replayed = replay_regions(calls.args, card, label)
+        check(calls.routes == {r: replayed[r] for r in calls.routes},
+              f"{label}: routes {calls.routes} != the plan's {replayed}")
+        largest = max((tuple(np.shape(a[0])) for a, _ in calls.args), default=None)
+        print(f"  {label}: {len(calls.args)} k-mer calls, routes {calls.routes}, the largest "
+              f"sample {largest} [{card}]", flush=True)
+        out[f"deep_{step}_{read_len}"] = dict(replayed, largest_sample=largest)
+    return out
 
 
 def bench_panel_routes(card):
@@ -2308,7 +2387,9 @@ def main() -> int:
                                              "form", "alone", "sample_only_kmers_call",
                                              "launches_path", "serial_path_launches",
                                              "call_ms", "region_cases", "smem_bytes",
-                                             "serial_routes")
+                                             "serial_routes", "cluster", "cluster_sizes",
+                                             "one_block_device_ms", "phase_clocks",
+                                             "held_at", "median_region_call_ms")
                          if k in row}})
     print(card_line())
     print(json.dumps({"kernels": table}))

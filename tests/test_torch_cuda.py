@@ -1095,9 +1095,7 @@ def test_region_kernel_matches_plain(card, name):
     route forced, which launches or raises before any launch."""
     args, kw = kmer_time.region_case(name)
     want = kmer.sample_only_kmers_plain(*args, **kw, device=card)
-    plan = kmer_cuda.region_plan(args[0].shape, len(args[2]),
-                                 None if "normal_codes" not in kw else kw["normal_codes"].shape,
-                                 args[3], kmer_cuda.smem_optin(card))
+    plan = _card_plan(args, kw, card)
     before, routes = dict(kmer_cuda.LAUNCHES), dict(kmer.ROUTES)
     got = kmer.sample_only_kmers(*args, **kw, device=card)
     moved = {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before
@@ -1116,23 +1114,120 @@ def test_region_kernel_matches_plain(card, name):
         assert kmer_cuda.LAUNCHES == before
 
 
+def _card_plan(args, kw, card, cluster=None):
+    normal = kw.get("normal_codes")
+    return kmer_cuda.card_plan(np.shape(args[0]), len(args[2]),
+                               None if normal is None else normal.shape, args[3], card, cluster)
+
+
 @pytest.mark.cuda
 def test_region_plan_bytes_are_the_kernels(card):
     """kmer_cuda.region_smem_bytes, the plan's reckoning, equals the
     launch's own (region_kmers_smem_bytes of the library) over sizes on
-    both sides of the card's limit, and the plan reads the card's limit."""
+    both sides of the card's limit at every cluster size, and the plan
+    reads the card's limit and cluster sizes (an H100's: every size up to
+    16)."""
     from breakmer_tpu_torch import _build
 
     lib = _build.library()
-    assert kmer_cuda.smem_optin(card) == kmer_cuda.H100_SMEM_OPTIN or \
-        "H100" not in torch.cuda.get_device_name(card)
-    for R in (0, 1, 7, 200, 308, 309, 600):
-        for L, L_r, L_n, k in ((100, 1800, 102, 15), (37, 1001, 0, 11), (15, 30_000, 20, 1),
-                               (150, 15, 0, 15)):
-            want = kmer_cuda.region_smem_bytes(R * (L - k + 1), max(L, L_r, L_n))
-            assert lib.region_kmers_smem_bytes(R, L, L_r, L_n, k) == want, (R, L, L_r, L_n, k)
-    assert lib.region_kmers_smem_bytes(5, 10, 1800, 0, 11) == -1
-    assert lib.region_kmers_smem_bytes(5, 100, 1800, 0, 16) == -1
+    if "H100" in torch.cuda.get_device_name(card):
+        assert kmer_cuda.smem_optin(card) == kmer_cuda.H100_SMEM_OPTIN
+        assert kmer_cuda.cluster_sizes(card) == kmer_cuda.H100_CLUSTERS
+    assert kmer_cuda.cluster_sizes(card)[:1] == (1,)
+    for C in kmer_cuda.REGION_CLUSTERS:
+        for R in (0, 1, 7, 200, 308, 309, 600, 1232, 4886):
+            for L, L_r, L_n, k in ((100, 1800, 102, 15), (37, 1001, 0, 11),
+                                   (15, 30_000, 20, 1), (150, 15, 0, 15), (250, 1800, 0, 15)):
+                want = kmer_cuda.region_smem_bytes(R, L - k + 1, max(L, L_r, L_n), C)
+                assert lib.region_kmers_smem_bytes(R, L, L_r, L_n, k, C) == want, \
+                    (R, L, L_r, L_n, k, C)
+    for C in kmer_cuda.REGION_CLUSTERS:
+        for L_r, normal, k in ((1800, (160, 102), 15), (15, None, 15), (1001, (13, 29), 11),
+                               (30_000, (5000, 150), 1), (1800, (0, 100), 15)):
+            R_n, L_n = normal or (0, 0)
+            assert lib.region_kmers_scratch_words(L_r, R_n, L_n, k, C) == \
+                kmer_cuda.region_scratch_words(L_r, normal if R_n else None, k, C), (L_r, normal)
+    assert lib.region_kmers_smem_bytes(5, 10, 1800, 0, 11, 1) == -1
+    assert lib.region_kmers_smem_bytes(5, 100, 1800, 0, 16, 1) == -1
+    assert lib.region_kmers_smem_bytes(5, 100, 1800, 0, 15, 3) == -1
+    assert lib.region_kmers_max_clusters(3, card.index or 0) == -1
+
+
+def _fits_at(args, kw, card, C):
+    return C in kmer_cuda.cluster_sizes(card) and _card_plan(args, kw, card, C).route == "fused"
+
+
+_CLUSTER_CASES = [n for n in kmer_time.REGION_CASES if n != "boundary_over"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", kmer_cuda.REGION_CLUSTERS)
+@pytest.mark.parametrize("name", _CLUSTER_CASES)
+def test_region_kernel_at_each_cluster_size(card, name, cluster):
+    """Each region case that a cluster of C CTAs takes, forced to C, one
+    launch, exact against the plain chain; a size it does not take raises
+    before any launch."""
+    args, kw = kmer_time.region_case(name)
+    before = dict(kmer_cuda.LAUNCHES)
+    if not _fits_at(args, kw, card, cluster):
+        with pytest.raises(ValueError, match="shared memory"):
+            kmer_cuda.region_kmers(*args, **kw, device=card, cluster=cluster)
+        assert kmer_cuda.LAUNCHES == before
+        return
+    want = kmer.sample_only_kmers_plain(*args, **kw, device=card)
+    v, c = kmer_cuda.region_kmers(*args, **kw, device=card, cluster=cluster)
+    got = kmer._by_count(v, c, kw["min_count"])
+    for a, b in zip(want, got, strict=True):
+        assert a.dtype == b.dtype and np.array_equal(a, b), (name, cluster)
+    assert {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before
+            if kmer_cuda.LAUNCHES[n] != before[n]} == {"region_kmers": 1}
+
+
+@pytest.mark.cuda
+def test_region_kernel_phase_clocks(card):
+    """The clock stamps of each CTA's phases: eleven a CTA, none before the
+    one before, at the plan's size and at one block; a clocks tensor of
+    another shape raises before any launch."""
+    args, kw = kmer_time.region_case("serial")
+    segments, total = kmer_cuda.region_pack(args[0], args[1], args[2], kw["normal_codes"],
+                                            kw["normal_lengths"])
+    staged = kmer_cuda.region_stage(segments, total, card)
+    windows = args[0].shape[0] * (args[0].shape[1] - args[3] + 1)
+    want = kmer.sample_only_kmers_plain(*args, **kw, device="cpu")
+    for C in (_card_plan(args, kw, card).cluster, 1):
+        clocks = torch.zeros((C, kmer_cuda.REGION_PHASES), dtype=torch.int64, device=card)
+        out = kmer_cuda.region_fetch(kmer_cuda.region_run(staged, segments, args[3],
+                                                          kw["min_count"], windows, C, clocks))
+        got = kmer._by_count(*out, kw["min_count"])
+        assert all(np.array_equal(a, b) for a, b in zip(want, got))
+        stamps = clocks.cpu().numpy()
+        assert (stamps > 0).all() and (np.diff(stamps, axis=1) >= 0).all(), stamps
+    before = dict(kmer_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="clocks"):
+        kmer_cuda.region_run(staged, segments, args[3], kw["min_count"], windows, 2,
+                             torch.zeros((1, kmer_cuda.REGION_PHASES), dtype=torch.int64,
+                                         device=card))
+    assert kmer_cuda.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_region_launch_refuses_a_cluster_size_it_does_not_take(card):
+    """A launch of 3 CTAs, or of one block past a block's layout, is
+    refused by the launch entry with nothing launched, and the wrapper
+    raises."""
+    from breakmer_tpu_torch import _build
+
+    for name, C in (("serial", 3), ("past_old_limit", 1)):
+        args, kw = kmer_time.region_case(name)
+        segments, total = kmer_cuda.region_pack(args[0], args[1], args[2],
+                                                kw.get("normal_codes"), kw.get("normal_lengths"))
+        staged = kmer_cuda.region_stage(segments, total, card)
+        windows = args[0].shape[0] * (args[0].shape[1] - args[3] + 1)
+        before = dict(kmer_cuda.LAUNCHES)
+        with pytest.raises(_build.KernelLaunchError):
+            kmer_cuda.region_run(staged, segments, args[3], kw["min_count"], windows, C)
+        torch.cuda.synchronize()
+        assert kmer_cuda.LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -1163,14 +1258,18 @@ def test_region_kernel_refusals_launch_nothing(card):
 
 @pytest.mark.cuda
 def test_region_kernel_result_layout(card):
-    """The launch's own result buffer: the kept runs, the runs, then the
-    kept (value, count) pairs ascending by value, no pair past them."""
+    """The launch's own result buffer at the plan's cluster size: the kept
+    runs, the runs, then the kept (value, count) pairs ascending by value,
+    no pair past them."""
     args, kw = kmer_time.region_case("serial")
     segments, total = kmer_cuda.region_pack(args[0], args[1], args[2], kw["normal_codes"],
                                             kw["normal_lengths"])
     staged = kmer_cuda.region_stage(segments, total, card)
+    plan = _card_plan(args, kw, card)
     windows = args[0].shape[0] * (args[0].shape[1] - args[3] + 1)
-    out = kmer_cuda.region_run(staged, segments, args[3], kw["min_count"], windows).cpu().numpy()
+    assert plan.cluster > 1 and plan.windows == windows
+    out = kmer_cuda.region_run(staged, segments, args[3], kw["min_count"], windows,
+                               plan.cluster).cpu().numpy()
     kept, runs = int(out[0]), int(out[1])
     pairs = out[2:2 + 2 * kept].reshape(-1, 2)
     v = pairs[:, 0].view(np.uint32)
