@@ -17,7 +17,10 @@
 // Codes are int64 on the device: a k-mer of k <= 15 bases is a 2k-bit
 // code, and an invalid slot holds SENTINEL = 0xFFFFFFFF (as int64, not
 // -1), which sorts after every code. Every kernel takes a row [N] or rows
-// [G, N] (the batched step's form) and works row by row.
+// [G, N] (the batched step's form) and works row by row. k <= 0 is taken
+// as the JAX functions take it (they refuse only k > 15 and L < k): a
+// window of no base has code 0 and no N, so it is valid where it lies in
+// its read, and the reverse complement of any code but SENTINEL is 0.
 //
 // What bounds them on this card: bytes, and at the serial path's shapes
 // the launch. Each does a handful of integer operations a byte it moves
@@ -52,7 +55,11 @@
 //   conflicts on banks) and leave as coalesced 16-byte stores (stored
 //   straight from a thread's consecutive windows, each 16-byte store of a
 //   warp half-fills its sectors, which measured slower). A thread's V
-//   validity bytes are one store.
+//   validity bytes are one store. At k <= 0 a block stages nothing and
+//   takes the rolling path with no byte to roll: a thread reads only its
+//   rows' lengths, code 0 where w <= length - k, SENTINEL elsewhere (W = L
+//   - k + 1 exceeds L, and L may be 0), at either V. (A branch of its own
+//   for k <= 0 cost the staged path ~3 % at a serial region's shape.)
 // - revcomp_kmers: constant time a code (bit reversal, a swap of
 //   neighbouring bits, a complement, a shift; no loop over k), a block of
 //   256 threads owning 256 V codes of a row (V = 8, or 2 where that would
@@ -230,7 +237,7 @@ kmer_codes_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict__ 
   const uintptr_t lo = (uintptr_t)(codes + r0 * L + (e0 - r0 * W));
   const uintptr_t hi = (uintptr_t)(codes + r1 * L + (e_end - 1 - r1 * W) + k);
   const uintptr_t base = lo & ~(uintptr_t)15;
-  const int lines = (int)((hi - base + 15) / 16);
+  const int lines = k > 0 ? (int)((hi - base + 15) / 16) : 0;  // k <= 0: no byte is read
   uint32_t neg = 0;
   for (int q = threadIdx.x; q < lines; q += THR) {
     const uintptr_t a = base + 16 * (uintptr_t)q;
@@ -262,7 +269,7 @@ kmer_codes_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict__ 
   // block down the rolling path
   const bool any_neg = __syncthreads_or(neg != 0);
 
-  const uint32_t mask = (1u << (2 * k)) - 1;  // k <= 15
+  const uint32_t mask = k > 0 ? (1u << (2 * k)) - 1 : 0;  // k <= 15
   // w <= length - k in wrapping int32, as the plain version computes it
   const int last0 = (int)((uint32_t)len0 - (uint32_t)k);
   const int last1 = (int)((uint32_t)len1 - (uint32_t)k);
@@ -270,7 +277,7 @@ kmer_codes_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict__ 
   uint64_t ok_bytes = 0;
   int w = nwin ? (int)(first - r * W) : 0;
   int row = (int)((intptr_t)(codes + r * L) - (intptr_t)base);  // stage index of (r, 0)
-  if (nwin && W >= V && !any_neg) {
+  if (nwin && W >= V && !any_neg && k > 0) {
     // The thread's windows lie in row r and, past its end, at the start of
     // row r + 1 (W >= V: no further). For each, 64 bits of codes from
     // its first window's first byte on (window s of the run is bits
@@ -303,7 +310,8 @@ kmer_codes_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict__ 
     // The rolling path: acc is the window's code mod 4^k (a byte's two low
     // bits leave it by the mask once the byte leaves the window), exact for
     // a window that holds no byte >= 4 (else SENTINEL) and none < 0 (else
-    // the direct code).
+    // the direct code). At k <= 0 no byte is read or rolled in: acc stays
+    // 0, the JAX function's code of a window of no base.
     const int64_t r_first = r;
     int last = 0, bad_at = -1, neg_at = -1;  // the window's last byte >= 4 and < 0 so far
     uint32_t acc = 0;
@@ -322,7 +330,7 @@ kmer_codes_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict__ 
           if (x < 0) neg_at = w + j;
           acc = (acc << 2) | (uint32_t)(x & 3);
         }
-      } else {  // roll the window's last byte in
+      } else if (k > 0) {  // roll the window's last byte in
         const int8_t x = stage[row + w + k - 1];
         if (x >= 4) bad_at = w + k - 1;
         if (x < 0) neg_at = w + k - 1;
@@ -364,17 +372,18 @@ kmer_codes_kernel(const int8_t* __restrict__ codes, const int32_t* __restrict__ 
   }
 }
 
-// The reverse complement of v's low 2k bits (1 <= k <= 15); SENTINEL stays
-// SENTINEL. Reversing the 64 bits reverses the order of the two-bit groups
-// and the two bits within each; swapping neighbouring bits puts the latter
-// back; a group's complement 3 - g is g ^ 3; the input's low 2k bits are
-// then the top 2k. The plain version's k steps, (o << 2) | (3 - (c & 3))
-// and c >>= 2, read the same bits, so any int64 gives the same code.
+// The reverse complement of v's low 2k bits (k <= 15); SENTINEL stays
+// SENTINEL, and at k <= 0 any other code is 0 (no two-bit group).
+// Reversing the 64 bits reverses the order of the two-bit groups and the
+// two bits within each; swapping neighbouring bits puts the latter back; a
+// group's complement 3 - g is g ^ 3; the input's low 2k bits are then the
+// top 2k. The plain version's k steps, (o << 2) | (3 - (c & 3)) and c >>=
+// 2, read the same bits, so any int64 gives the same code.
 __device__ __forceinline__ int64_t revcomp(int64_t v, int k) {
   constexpr uint64_t ODD = 0x5555555555555555ull;
   uint64_t y = __brevll((unsigned long long)v);
   y = ((y >> 1) & ODD) | ((y & ODD) << 1);
-  return v == SENT ? SENT : (int64_t)(~y >> (64 - 2 * k));
+  return v == SENT ? SENT : k > 0 ? (int64_t)(~y >> (64 - 2 * k)) : 0;
 }
 
 // x [rows, m] -> out [rows, m], the codes' reverse complements (BOTH
@@ -783,8 +792,9 @@ bool aligned(const void* p, uintptr_t bytes) { return (uintptr_t)p % bytes == 0;
 
 // The 16-byte lines of kmer_codes_kernel's stage at L and k, at most: a
 // span's windows cross at most (span - 1) / W + 1 row ends, each adding
-// k - 1 bytes, and the run starts and ends inside a line.
+// k - 1 bytes, and the run starts and ends inside a line; none at k <= 0.
 long long kmer_codes_lines(long long span, long long L, int k) {
+  if (k <= 0) return 0;
   const long long W = L - k + 1;
   return (span - 1 + ((span - 1) / W + 1) * (k - 1) + k + 30) / 16 + 1;
 }
@@ -871,12 +881,13 @@ bool row_tiles(long long rows, long long n, long long per_tile, long long* tiles
 // int8 base codes, one byte a bool.
 extern "C" {
 
-// codes [R, L], lengths [R] -> kmers, valid [R, L - k + 1]; 1 <= k <= 15;
-// kmers 16-byte and valid 8-byte aligned (as torch.empty gives them).
+// codes [R, L], lengths [R] -> kmers, valid [R, L - k + 1]; k <= 15 and
+// L >= k (k <= 0: codes is not read); kmers 16-byte and valid 8-byte
+// aligned (as torch.empty gives them).
 int kmer_codes_launch(const void* codes, const void* lengths, long long R, int L, int k,
                       void* kmers, void* valid, void* stream) {
   unsigned blocks;
-  if (k < 1 || k > MAX_K || L < k || !aligned(kmers, 16) || !aligned(valid, 8) ||
+  if (k > MAX_K || L < k || !aligned(kmers, 16) || !aligned(valid, 8) ||
       !grid(R * (L - k + 1), KMER_THREADS * KMER_V, &blocks))
     return (int)cudaErrorInvalidValue;
   if ((int)blocks >= sm_count())
@@ -887,12 +898,12 @@ int kmer_codes_launch(const void* codes, const void* lengths, long long R, int L
 
 // x [rows, m] -> out [rows, m] of reverse complements (both 0), or out
 // [rows, 2m], each row's codes and then their reverse complements (both
-// 1); 1 <= k <= 15.
+// 1); k <= 15.
 int revcomp_kmers_launch(const void* x, long long rows, long long m, int k, int both, void* out,
                          void* stream) {
   long long tiles;
   unsigned blocks;
-  if (k < 1 || k > MAX_K || !row_tiles(rows, m, RC_THREADS * RC_V, &tiles, &blocks))
+  if (k > MAX_K || !row_tiles(rows, m, RC_THREADS * RC_V, &tiles, &blocks))
     return (int)cudaErrorInvalidValue;
   if ((int)blocks >= sm_count())
     return revcomp_kmers_run<RC_THREADS, RC_V>(x, m, tiles, k, both, out, blocks, stream);

@@ -102,11 +102,16 @@
 //    pairs; CTA 0 writes the two counts. Every CTA awaits all it is sent,
 //    so none leaves while a peer writes into it.
 // C = 1 is one block launched as before, with no cluster barrier and no
-// DSMEM access. A CTA's appended codes must stay below 65,536 (the uint16
-// offsets and index of O); ops/kmer.py takes the per-function route (K1-K4
-// and torch.sort) for a region whose layout fits at no cluster size the
-// card runs, and the launch refuses one.
+// DSMEM access. k <= 0 runs the same phases, as the JAX functions take it:
+// a window of no base has code 0 (valid where it lies in its read, nothing
+// staged, no byte read), its reverse complement is 0, and the sort and the
+// runs see one value; as the reference's windows are all valid, its code 0
+// removes that value and the result is empty. A CTA's appended codes must
+// stay below 65,536 (the uint16 offsets and index of O); ops/kmer.py takes
+// the per-function route (K1-K4 and torch.sort) for a region whose layout
+// fits at no cluster size the card runs, and the launch refuses one.
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -222,8 +227,8 @@ __device__ Set rows_part(const Set& s, int r, int C) {
 __device__ Set windows_part(const Set& s, int k, int r, int C) {
   const long long W = s.L - k + 1, w0 = W * r / C, w1 = W * (r + 1) / C;
   Set p = s;
-  p.codes += w0;
-  p.L = (int)(w1 - w0) + k - 1;
+  p.codes += k > 0 ? w0 : 0;     // (k <= 0: no byte is read, and W > L)
+  p.L = (int)(w1 - w0) + k - 1;  // the part's W is w1 - w0
   p.skip = (int)w0;
   if (w1 == w0) p.R = 0;
   return p;
@@ -309,12 +314,12 @@ __device__ __forceinline__ uint32_t window_code(const int8_t* s, int k) {
 }
 
 // The reverse complement of v's low 2k bits (csrc/kmer.cu's revcomp; v is
-// never SENTINEL here).
+// never SENTINEL here): 0 at k <= 0.
 __device__ __forceinline__ uint32_t revcomp(uint32_t v, int k) {
   constexpr uint64_t ODD = 0x5555555555555555ull;
   uint64_t y = __brevll((unsigned long long)v);
   y = ((y >> 1) & ODD) | ((y & ODD) << 1);
-  return (uint32_t)(~y >> (64 - 2 * k));
+  return k > 0 ? (uint32_t)(~y >> (64 - 2 * k)) : 0u;
 }
 
 __device__ __forceinline__ unsigned lanes_below() { return (1u << (threadIdx.x & 31)) - 1; }
@@ -548,7 +553,9 @@ enum Mode { APPEND, STORE, MARK_BOTH, MARK };
 // global scratch; m[ctr] of them); MARK_BOTH marks each valid code of the
 // reference and its reverse complement, MARK each valid code of the
 // normal. Every thread of the CTA calls it; the windows a thread computes
-// are consecutive.
+// are consecutive. At k <= 0 a window holds no base: nothing is staged, no
+// byte is read, and a window's code is 0 where it lies in its read (W = L
+// - k + 1 exceeds L, which may be 0 or, in a part of the reference, less).
 template <Mode MODE>
 __device__ void each_window(const Set& set, int k, uint4* stage, long long stage_lines,
                             const Index& ix, int n, int* m, uint32_t* dst = nullptr,
@@ -556,15 +563,17 @@ __device__ void each_window(const Set& set, int k, uint4* stage, long long stage
   const int R = set.R, L = set.L, W = L - k + 1;
   if (R == 0 || ((MODE == MARK || MODE == MARK_BOTH) && n == 0)) return;
   const int lane = threadIdx.x & 31;
-  const uint32_t mask = (1u << (2 * k)) - 1;  // k <= 15
-  const int rows_per = (int)((16 * stage_lines - 30) / L);  // >= 1 by the layout
+  const uint32_t mask = k > 0 ? (1u << (2 * k)) - 1 : 0;  // k <= 15
+  const int roll_from = k > 0 ? 1 : INT_MAX;  // the first window that rolls a byte in
+  // rows a chunk: >= 1 by the layout (k <= 0: every row, none staged)
+  const int rows_per = k > 0 ? (int)((16 * stage_lines - 30) / L) : R;
   uint32_t orv = 0;
   for (int r0 = 0; r0 < R; r0 += rows_per) {
     const int r1 = min(R, r0 + rows_per);
     const uintptr_t lo = (uintptr_t)(set.codes + (long long)r0 * L);
     const uintptr_t hi = (uintptr_t)(set.codes + (long long)r1 * L);
     const uintptr_t base = lo & ~(uintptr_t)15;
-    const int lines = (int)((hi - base + 15) / 16);
+    const int lines = k > 0 ? (int)((hi - base + 15) / 16) : 0;
     for (int q = threadIdx.x; q < lines; q += THREADS)
       stage[q] = reinterpret_cast<const uint4*>(base)[q];
     __syncthreads();
@@ -599,7 +608,7 @@ __device__ void each_window(const Set& set, int k, uint4* stage, long long stage
         const bool in = w < w1;
         uint32_t code = SENT;
         if (in) {
-          if (i) {  // roll the window's last byte in
+          if (i >= roll_from) {  // roll the window's last byte in
             const int8_t x = row[w + k - 1];
             if (x >= 4) bad_at = w + k - 1;
             if (x < 0) neg_at = w + k - 1;
@@ -971,15 +980,16 @@ extern "C" {
 // reference of L_r bytes and a normal of R_n rows of L_n (R_n 0: none) at
 // k (C = 1: none).
 long long region_kmers_scratch_words(int L_r, int R_n, int L_n, int k, int C) {
-  if (k < 1 || L_r < k || (R_n && L_n < k) || R_n < 0 || !cluster_size(C)) return -1;
+  if (L_r < k || (R_n && L_n < k) || R_n < 0 || !cluster_size(C)) return -1;
   return C * region_scratch(L_r - k + 1, R_n, R_n ? L_n - k + 1 : 0, C).stride;
 }
 
 // A CTA's dynamic shared memory for a sample of R_s rows of L_s bytes, a
-// reference of L_r and a normal's rows of L_n (0: none) at k, in a cluster
-// of C CTAs; -1 for sizes it does not take.
+// reference of L_r and a normal's rows of L_n (0: none) at k <= 15, in a
+// cluster of C CTAs; -1 for sizes it does not take (a set shorter than k
+// among them).
 long long region_kmers_smem_bytes(long long R_s, int L_s, int L_r, int L_n, int k, int C) {
-  if (k < 1 || k > MAX_K || L_s < k || L_r < k || (L_n && L_n < k) || R_s < 0 ||
+  if (k > MAX_K || L_s < k || L_r < k || (L_n && L_n < k) || R_s < 0 ||
       !cluster_size(C))
     return -1;
   return region_layout(R_s, L_s - k + 1, longest_row(L_s, L_r, L_n), C).bytes;

@@ -124,7 +124,8 @@ def revcomp_kmers_plain(codes: torch.Tensor, k: int) -> torch.Tensor:
     c = codes
     out = torch.zeros_like(c)
     for _ in range(k):
-        out = (out << 2) | (3 - (c & 3))
+        # the JAX function's uint32 arithmetic: past k = 16 the code wraps
+        out = ((out << 2) | (3 - (c & 3))) & _SENT
         c = c >> 2
     return out.masked_fill(codes == _SENT, _SENT)
 
@@ -174,8 +175,12 @@ def member_sorted(queries: torch.Tensor, table_sorted: torch.Tensor) -> torch.Te
 
     ``table_sorted`` may contain SENTINEL padding (sorts last). SENTINEL
     queries return False. Batched form: queries [G, N] against tables
-    [G, M], row g against table g.
+    [G, M], row g against table g. A table of width 0 against queries
+    raises ``TypeError``, as the JAX function's gather refuses it.
     """
+    if table_sorted.shape[-1] == 0 and queries.numel():
+        raise TypeError(f"member_sorted: a table of width 0 {tuple(table_sorted.shape)} "
+                        f"against {queries.numel()} queries")
     pos = torch.searchsorted(table_sorted, queries)
     pos = pos.clamp(0, table_sorted.shape[-1] - 1)
     hit = table_sorted.gather(-1, pos) == queries
@@ -247,8 +252,9 @@ def subtract_sorted(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`subtract_sorted_plain`'s contract, dispatched by
     ``sample_values``' device (a table of width 0 is refused where there
-    are queries: the plain version and the JAX function index past its
-    end, the card wrapper raises ``ValueError`` before it launches)."""
+    are queries: the plain version raises ``TypeError``, as the JAX
+    function's gather does, the card wrapper ``ValueError`` before it
+    launches)."""
     return _pick("subtract_sorted", sample_values, kmer_cuda.subtract_sorted,
                  subtract_sorted_plain)(sample_values, sample_counts, ref_sorted, normal_sorted)
 

@@ -69,21 +69,23 @@ def _dtype(name: str, t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
         raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
 
 
-def _check_k(name: str, k: int) -> None:
+def _check_k(k: int) -> None:
+    """The JAX functions' one refusal of k: past 15 (k <= 0 is taken: every
+    window's code is 0, and every reverse complement but SENTINEL's)."""
     if k > MAX_K:
         raise ValueError(f"k={k} exceeds uint32 capacity (max {MAX_K})")
-    if k < 1:
-        raise ValueError(f"{name}: k={k} < 1")
 
 
 def kmer_codes(codes: torch.Tensor, lengths: torch.Tensor, k: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``ops.kmer.kmer_codes`` on the card: codes [R, L] int8, lengths [R]
-    int32 -> (kmers [R, L - k + 1] int64, valid bool)."""
+    int32 -> (kmers [R, L - k + 1] int64, valid bool); k <= 15 and L >= k
+    (at k <= 0, L - k + 1 > L windows a row, each of code 0 where it lies
+    in its read)."""
     _on_one_card("kmer_codes", codes, lengths)
     _dtype("kmer_codes", codes, torch.int8, "codes")
     _dtype("kmer_codes", lengths, torch.int32, "lengths")
-    _check_k("kmer_codes", k)
+    _check_k(k)
     if codes.dim() != 2 or lengths.shape != codes.shape[:1]:
         raise ValueError(f"kmer_codes: codes {tuple(codes.shape)}, lengths "
                          f"{tuple(lengths.shape)}; want [R, L] and [R]")
@@ -105,7 +107,7 @@ def revcomp_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
     """``ops.kmer.revcomp_kmers`` on the card: int64 codes of any shape."""
     _on_one_card("revcomp_kmers", codes)
     _dtype("revcomp_kmers", codes, torch.int64, "codes")
-    _check_k("revcomp_kmers", k)
+    _check_k(k)
     codes = codes.contiguous()
     out = torch.empty_like(codes)
     n = codes.numel()
@@ -121,7 +123,7 @@ def both_strands(codes: torch.Tensor, k: int) -> torch.Tensor:
     launch of the ``revcomp_kmers`` kernel."""
     _on_one_card("both_strands", codes)
     _dtype("both_strands", codes, torch.int64, "codes")
-    _check_k("both_strands", k)
+    _check_k(k)
     rows, m = _rows("both_strands", codes)
     codes = codes.contiguous()
     out = torch.empty((*codes.shape[:-1], 2 * m), dtype=torch.int64, device=codes.device)
@@ -290,8 +292,9 @@ def region_plan(sample_shape: Tuple[int, int], ref_len: int,
     ``limit`` bytes of shared memory a CTA and the cluster sizes
     ``clusters`` the card runs: the smallest of them, at least
     ``region_cluster``'s (or the largest there is), whose layout fits; or
-    ``cluster`` alone, where given. Shapes with L or ``ref_len`` shorter
-    than k are the caller's to refuse first."""
+    ``cluster`` alone, where given. A row has L - k + 1 windows, more than
+    L at k <= 0. Shapes with L or ``ref_len`` shorter than k are the
+    caller's to refuse first."""
     (R, L), ln = sample_shape, (0 if normal_shape is None else normal_shape[1])
     W = L - k + 1
     windows, longest = R * W, max(L, ref_len, ln)
@@ -386,7 +389,7 @@ def check_region(sample_codes, sample_lengths, ref_len, normal_codes, normal_len
     launches: k, then the sample's, the reference's and the normal's
     shapes (as ``kmer_codes`` refuses them), then an empty normal table
     against sample windows (as ``subtract_sorted`` does)."""
-    _check_k("kmer_codes", k)
+    _check_k(k)
     sets = [(np.shape(sample_codes), np.shape(sample_lengths)), ((1, ref_len), (1,))]
     if normal_codes is not None:
         sets.append((np.shape(normal_codes), np.shape(normal_lengths)))

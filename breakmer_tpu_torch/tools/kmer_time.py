@@ -89,6 +89,7 @@ REGION_CASES = {
     "old_limit_fits": dict(R=308, normal=None), "old_limit_over": dict(R=309, normal=None),
     "past_old_limit": dict(R=600), "deep_250": dict(R=340, L=250, normal=None),
     "mostly_poly_a": dict(heavy=0.9), "tandem": dict(tandem=True),
+    "k0": dict(k=0), "k_minus_1": dict(k=-1),
 }
 
 

@@ -118,6 +118,18 @@ phase's wall time is printed):
      [cuda:0] * 4 (the sharded step, one SW launch a shard; the sharded
      seed table; the batched runner over the mesh against the serial
      one), its wall time and each stage's launches.
+ 22. the k-mer engine over its input domain (testing/kmer_domain.py: k
+     from -2 to 17 crossed with the edges of each input): on every case
+     K1, K2 in both forms, the per-function route forced, the region
+     kernel forced to each cluster size that takes the case and the
+     plan's route, exact against the plain versions on the card, each
+     launch counted (at k <= 0 the region kernel at every cluster size the
+     card runs); then scenario seed 1 (two genes, a matched normal) at
+     kmer_size = seed_kmer_size = 0, serial and batched, on the card and
+     on the CPU: svs.out, the VCF and the ledger rows byte-identical, no
+     region error, the counts set to 0 before each card run and read
+     after it (the serial run one region kernel launch a region, the
+     batched run every per-function kernel).
 The last two lines are the kernel table (with each kernel's bound and
 the time of one PyTorch call computing the same function, null where
 there is none) and
@@ -824,7 +836,8 @@ def kmer_edges(dev, card):
     versions at those designs' edges, one launch a call: for kmer_codes
     spans that cross rows and end ragged, k = 1, L < 16, a row of 5,000
     bases, poly-A rows, negative bytes (at the batch step's size too),
-    codes off a 16-byte line; for subtract_sorted queries in any order, a
+    codes off a 16-byte line, k = -2, -1 and 0 (windows of no base, W > L,
+    rows of 0 bases, at both of its spans); for subtract_sorted queries in any order, a
     table range wider than one staged chunk, tiles of SENTINEL alone, an
     odd row width, rows off a 16-byte line, values past 32 bits; for
     unique_counts_sorted runs that cross one tile and many, poly-A rows,
@@ -832,7 +845,8 @@ def kmer_edges(dev, card):
     inside a tile, an odd n, rows off a 16-byte line, runs of every
     length, at both of the launch's tile sizes; for both_strands (the
     revcomp_kmers kernel) an odd width, rows off a 16-byte line, one code,
-    values of any int64, every k, at both of its tile sizes."""
+    values of any int64, every k from -2 to 15, at both of its tile
+    sizes."""
     from breakmer_tpu_torch.ops import kmer, kmer_cuda
     from breakmer_tpu_torch.timing import queued_ms
 
@@ -870,6 +884,8 @@ def kmer_edges(dev, card):
                    (*reads(512, 128, 0.02, 0.03), 15), (*reads(32 * 512, 128, 0.01, 0.0005), 15)]
     flat = on(np.concatenate([np.zeros(3), rng.integers(0, 4, 200 * 100)]).astype(np.int8))
     codes_cases.append((flat[3:].view(200, 100), on(np.full(200, 100, np.int32)), 15))
+    codes_cases += [(*reads(37, 23), -2), (*reads(200, 100, 0.02, 0.01), -1),
+                    (*reads(50, 0), 0), (*reads(9, 3), -1), (*reads(32 * 512, 128), 0)]
     for codes, lengths, k in codes_cases:
         once("kmer_codes", kmer.kmer_codes, kmer.kmer_codes_plain, codes, lengths, k)
     row, one = reads(1, 5000, 0.002)
@@ -922,9 +938,10 @@ def kmer_edges(dev, card):
                     (on(rng.integers(0, 1 << 30, (3, 1001))), 15),  # odd: code by code
                     (flat[1:].view(2, 600), 5),                     # off the 16-byte line
                     (on(np.array([SENTINEL])), 3),
-                    (on(rng.integers(-(1 << 62), 1 << 62, (200, 3000))), 11)]  # 8 codes a thread
+                    (on(rng.integers(-(1 << 62), 1 << 62, (200, 3000))), 11),  # 8 codes a thread
+                    (on(rng.integers(-(1 << 62), 1 << 62, (200, 3000))), 0)]
     wide = on(np.concatenate([rng.integers(-(1 << 62), 1 << 62, 500), [SENTINEL] * 10]))
-    strand_cases += [(wide, k) for k in range(1, 16)]
+    strand_cases += [(wide, k) for k in range(-2, 16)]
     for x, k in strand_cases:
         once("both_strands", kmer.both_strands, kmer.both_strands_plain, x, k)
         once("revcomp_kmers", kmer.revcomp_kmers, kmer.revcomp_kmers_plain, x, k)
@@ -2267,6 +2284,64 @@ def phase_graft_entry(card):
     return step_launches, [n for _, n in stages.values()]
 
 
+def phase_kmer_domain(dev, card):
+    """Phase 22: the domain grid through the k-mer kernels against their
+    plain versions, then the seed-1 run at k = 0 on the card against the
+    CPU. Returns the launches by kernel: of the grid, and of each card
+    run."""
+    from breakmer_tpu_torch.ops import kmer, kmer_cuda
+    from breakmer_tpu_torch.testing import kmer_domain
+    from breakmer_tpu_torch.testing.scenarios import build_scenario
+
+    sizes = list(kmer_cuda.cluster_sizes(dev))
+    calls = dict.fromkeys(("per_function", "region_kmers"), 0)
+    zero_launches()
+    for name in kmer_domain.cases():
+        try:
+            made = kmer_domain.held_on_card(name, dev)
+        except AssertionError as exc:
+            raise SmokeFailure(f"k-mer domain {name}: card != plain {exc}") from exc
+        calls = {key: n + made[key] for key, n in calls.items()}
+        if name.startswith(("k=-", "k=0/")) and made["per_function"]:
+            check(made["clusters"] == sizes, f"k-mer domain {name}: the region kernel at "
+                  f"{made['clusters']}, not at every cluster size {sizes}")
+    grid = read_launches()
+    print(f"  k-mer domain: {len(kmer_domain.cases())} cases (k {kmer_domain.KS}) exact on the "
+          f"card, launches {grid}; region calls on the per-function route {calls['per_function']},"
+          f" through the region kernel {calls['region_kmers']} [{card}]", flush=True)
+
+    work = WORK / "k0"
+    work.mkdir(parents=True)
+    cfg_kwargs, _ = build_scenario(1, work, n_genes=2, kinds=["ins", "del"],
+                                   with_normal_germline=True)
+    runs = {}
+    for mode, batched in (("serial", False), ("batched", True)):
+        outs = {}
+        for device in ("cpu", "cuda"):
+            out = work / f"{mode}_{device}"
+            routes = dict(kmer.ROUTES)
+            if device == "cuda":
+                zero_launches()
+            run_panel({**cfg_kwargs, "kmer_size": 0, "seed_kmer_size": 0,
+                       "batch_regions": batched}, out, device)
+            if device == "cuda":
+                runs[mode] = dict(read_launches(),
+                                  fused_calls=kmer.ROUTES["fused"] - routes["fused"])
+            ledger = json.loads((out / "ledger.json").read_text())
+            outs[device] = ([(out / "output" / n).read_bytes() for n in OUTPUTS],
+                            {n: (e["rows"], e["vcf"], e["error"]) for n, e in ledger.items()})
+        check(outs["cuda"] == outs["cpu"], f"seed 1 at k = 0, {mode}: CUDA != CPU")
+        check(len(outs["cuda"][1]) == 3, f"seed 1 at k = 0, {mode}: {len(outs['cuda'][1])} regions")
+    check(runs["serial"]["region_kmers"] == runs["serial"]["fused_calls"] > 0,
+          f"seed 1 at k = 0, serial: launches {runs['serial']}")
+    check(all(runs["batched"][n] > 0 for n in kmer_cuda.KERNELS),
+          f"seed 1 at k = 0, batched: launches {runs['batched']}")
+    print(f"  seed 1 at k = 0 (2 genes and a germline one): serial and batched byte-identical "
+          f"to the CPU, no region error; card launches serial {runs['serial']}, batched "
+          f"{runs['batched']} [{card}]", flush=True)
+    return {"grid": grid, **runs}
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "sw_wavefront": ("breakmer_tpu_torch/csrc/sw_wavefront.cu",
                      "breakmer_tpu/ops/sw_pallas.py:179"),
@@ -2333,6 +2408,7 @@ def main() -> int:
     timed("probe_fetch", phase_fetch_probe)
     timed("bench_genome_e2e 100 Mbp", phase_genome_e2e, card)
     entry_launches, dryrun_launches = timed("graft entry", phase_graft_entry, card)
+    domain_launches = timed("kmer domain, k <= 0", phase_kmer_domain, dev, card)
 
     head = next(r for r in sw_rows if tuple(r["shape"]) == HEADLINE)
     rows["sw_wavefront"] = dict(max_abs_err=sw_err, shape=head["shape"], ms=head["ms"],
@@ -2359,6 +2435,9 @@ def main() -> int:
         rows[name]["graft_entry_launches"] = {
             "entry_step": entry_launches[name],
             "dryrun_stages": [stage[name] for stage in dryrun_launches]}
+    for name in (*KMER_KERNELS, "region_kmers"):
+        rows[name]["k_nonpositive_launches"] = {key: n[name]
+                                                for key, n in domain_launches.items()}
     rows["kmer_codes"]["sample_only_kmers_call"] = kmer_call
     rows["region_kmers"]["sample_only_kmers_call"] = kmer_call
     table = []
@@ -2389,7 +2468,8 @@ def main() -> int:
                                              "call_ms", "region_cases", "smem_bytes",
                                              "serial_routes", "cluster", "cluster_sizes",
                                              "one_block_device_ms", "phase_clocks",
-                                             "held_at", "median_region_call_ms")
+                                             "held_at", "median_region_call_ms",
+                                             "k_nonpositive_launches")
                          if k in row}})
     print(card_line())
     print(json.dumps({"kernels": table}))

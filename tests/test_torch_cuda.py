@@ -693,7 +693,7 @@ _KMER_SHAPES = [(200, 100), (1, 3000), (1, 60), (32 * 512, 128), (5, 15), (3, 16
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 5, 11, 15])
+@pytest.mark.parametrize("k", [-2, -1, 0, 1, 5, 11, 15])
 @pytest.mark.parametrize("R,L", _KMER_SHAPES)
 def test_kmer_codes_kernel_matches_plain(card, k, R, L):
     rng = np.random.default_rng(R + L + k)
@@ -723,9 +723,9 @@ def test_kmer_codes_kernel_on_all_n_and_every_byte(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 5, 11, 15])
+@pytest.mark.parametrize("k", [-1, 0, 1, 5, 11, 15])
 def test_revcomp_kernel_matches_plain(card, k):
-    rng = np.random.default_rng(k)
+    rng = np.random.default_rng(k % 1000)  # (a seed >= 0)
     codes, lengths = (torch.from_numpy(a).to(card) for a in _read_codes(rng, 64, 200, k))
     km = kmer.kmer_codes_plain(codes, lengths, k)[0]
     for x in (km, km.reshape(-1), km[:, ::3], km.t(),
@@ -735,7 +735,7 @@ def test_revcomp_kernel_matches_plain(card, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 5, 11, 15])
+@pytest.mark.parametrize("k", [-2, 0, 1, 5, 11, 15])
 def test_both_strands_kernel_matches_plain(card, k):
     """The both-strand form (one launch of the revcomp_kmers kernel)
     against its plain version, torch.cat of the codes and their reverse
@@ -1233,13 +1233,13 @@ def test_region_launch_refuses_a_cluster_size_it_does_not_take(card):
 @pytest.mark.cuda
 def test_region_kernel_refusals_launch_nothing(card):
     """What the per-function route refuses, the plan's route and the fused
-    route refuse before any launch, with the same error: k past 15 or below 1, a reference or
-    reads shorter than k, lengths of another shape, an empty normal table
-    against sample windows."""
+    route refuse before any launch, with the same error: k past 15, a
+    reference or reads shorter than k, lengths of another shape, an empty
+    normal table against sample windows."""
     args, kw = kmer_time.region_case("serial")
     codes, lengths, ref, k = args
     before = dict(kmer_cuda.LAUNCHES)
-    cases = [((codes, lengths, ref, 16), kw, "capacity"), ((codes, lengths, ref, 0), kw, "k=0"),
+    cases = [((codes, lengths, ref, 16), kw, "capacity"),
              ((codes, lengths, ref[:10], k), kw, "shorter"),
              ((codes[:, :10], lengths, ref, k), kw, "shorter"),
              ((codes, lengths[:5], ref, k), kw, "want"),
@@ -1305,3 +1305,61 @@ def test_a_card_fault_ends_a_run(card, tmp_path):
                           text=True, timeout=120, env={**__import__("os").environ,
                                                        "PYTHONPATH": str(root)})
     assert proc.stdout.split() == ["AcceleratorError", "True"], proc.stdout + proc.stderr
+
+
+# -- the k-mer engine over its input domain (k <= 0 among it) ------------------
+
+from breakmer_tpu_torch.testing import kmer_domain  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", kmer_domain.KS)
+def test_kmer_domain_on_card_matches_plain(card, k):
+    """Every variant of the domain grid at k through K1, K2 in both forms,
+    the per-function route, the region kernel (K5) at each cluster size
+    that takes it and the plan's route, exact against the plain versions
+    on the card, each launch counted (``kmer_domain.held_on_card``); at k
+    <= 0 the region kernel runs at every cluster size the card has."""
+    for name in kmer_domain.cases():
+        if name.startswith(f"k={k}/"):
+            made = kmer_domain.held_on_card(name, card)
+            if k <= 0 and made["per_function"]:
+                assert made["clusters"] == list(kmer_cuda.cluster_sizes(card)), (name, made)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["serial", "batched"])
+def test_run_at_k_0_on_card_matches_cpu(card, batched, tmp_path):
+    """Scenario seed 1 (two genes, a matched normal) at kmer_size =
+    seed_kmer_size = 0 through the runner on the card, serial (the region
+    kernel a region) and batched (K1-K4): svs.out, the VCF and the ledger
+    rows equal the CPU run's, no region error."""
+    import json
+
+    from breakmer_tpu_torch.config import Config
+    from breakmer_tpu_torch.runner import Runner
+    from breakmer_tpu_torch.testing.scenarios import build_scenario
+
+    cfg_kwargs, _ = build_scenario(1, tmp_path, n_genes=2, kinds=["ins", "del"],
+                                   with_normal_germline=True)
+    cfg_kwargs.pop("reference_data_dir")
+    out = {}
+    for device in ("cpu", "cuda"):
+        adir = tmp_path / device
+        before, routes = dict(kmer_cuda.LAUNCHES), dict(kmer.ROUTES)
+        runner = Runner(Config(**{**cfg_kwargs, "kmer_size": 0, "seed_kmer_size": 0,
+                                  "batch_regions": batched, "analysis_dir": str(adir),
+                                  "device": device, "log_level": "WARNING"}))
+        runner.setup()
+        runner.run()
+        ledger = json.loads((adir / "ledger.json").read_text())
+        assert json.loads((adir / "metrics.json").read_text())["errors"] == {}, device
+        out[device] = ((adir / "output" / "prop_svs.out").read_bytes(),
+                       (adir / "output" / "prop.vcf").read_bytes(),
+                       {n: (e["rows"], e["vcf"], e["error"]) for n, e in ledger.items()})
+        moved = {n: kmer_cuda.LAUNCHES[n] - before[n] for n in before}
+    assert out["cuda"] == out["cpu"]
+    if batched:
+        assert all(moved[n] > 0 for n in kmer_cuda.KERNELS), moved
+    else:
+        assert moved["region_kmers"] == kmer.ROUTES["fused"] - routes["fused"] > 0, moved

@@ -90,16 +90,12 @@ def test_kmer_codes_wrapper_refuses_what_the_plain_version_refuses(wrappers):
         kmer_cuda.kmer_codes(codes, lengths, 16)
     with pytest.raises(ValueError, match="shorter"):
         kmer_cuda.kmer_codes(codes, lengths, 11)
-    with pytest.raises(ValueError, match="k=0"):
-        kmer_cuda.kmer_codes(codes, lengths, 0)
     with pytest.raises(ValueError, match="want"):
         kmer_cuda.kmer_codes(codes, lengths[:2], 5)
     with pytest.raises(ValueError, match="capacity"):
         kmer_cuda.revcomp_kmers(torch.zeros(4, dtype=torch.int64), 16)
     with pytest.raises(ValueError, match="capacity"):
         kmer_cuda.both_strands(torch.zeros(4, dtype=torch.int64), 16)
-    with pytest.raises(ValueError, match="k=0"):
-        kmer_cuda.both_strands(torch.zeros(4, dtype=torch.int64), 0)
     with pytest.raises(ValueError, match="scalar"):
         kmer_cuda.both_strands(torch.zeros((), dtype=torch.int64), 5)
     assert wrappers == []
@@ -170,6 +166,23 @@ def test_a_non_empty_input_reaches_the_launch(wrappers):
     assert wrappers == ["kmer_codes", "subtract_sorted"]
 
 
+@pytest.mark.parametrize("k", [0, -1, -2])
+def test_k_of_no_base_reaches_the_launch(wrappers, k):
+    """k <= 0, which the JAX functions and the plain versions take, is
+    taken by the wrappers too: each launches its kernel (reads of 0 bases
+    among them, whose L - k + 1 windows exceed L)."""
+    lengths = torch.full((3,), 10, dtype=torch.int32)
+    for codes in (torch.zeros((3, 10), dtype=torch.int8), torch.zeros((3, 0), dtype=torch.int8)):
+        with pytest.raises(RuntimeError, match="launch of kmer_codes reached"):
+            kmer_cuda.kmer_codes(codes, lengths, k)
+    x = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="launch of revcomp_kmers reached"):
+        kmer_cuda.revcomp_kmers(x, k)
+    with pytest.raises(RuntimeError, match="launch of revcomp_kmers reached"):
+        kmer_cuda.both_strands(x, k)
+    assert wrappers == ["kmer_codes"] * 2 + ["revcomp_kmers"] * 2
+
+
 def test_both_strands_launches_the_revcomp_kernel(wrappers):
     """The both-strand form is a launch of the revcomp_kmers kernel (and
     is counted as one), from a strided view made contiguous."""
@@ -182,13 +195,13 @@ def test_both_strands_launches_the_revcomp_kernel(wrappers):
 @pytest.mark.parametrize("widths", [(0, None), (0, 4), (4, 0), (0, 0)])
 def test_subtract_wrapper_refuses_a_table_of_width_0(wrappers, widths):
     """Where there are queries, a table of width 0 raises before anything
-    launches: the plain version and the JAX function index past its end."""
+    launches; the plain version raises the JAX function's TypeError."""
     v = torch.zeros((2, 3), dtype=torch.int64)
     c = torch.zeros((2, 3), dtype=torch.int32)
     ref, normal = (None if m is None else torch.zeros((2, m), dtype=torch.int64) for m in widths)
     with pytest.raises(ValueError, match="width 0"):
         kmer_cuda.subtract_sorted(v, c, ref, normal)
-    with pytest.raises(RuntimeError, match="out of bounds"):
+    with pytest.raises(TypeError, match="width 0"):
         tk.subtract_sorted_plain(v, c, ref, normal)
     assert wrappers == []
 
@@ -242,8 +255,10 @@ def _kmer_codes_mirror(codes: np.ndarray, lengths: np.ndarray, k: int,
     byte and, past its row's end, from the next row's first byte; else by
     the rolling code (k steps at its first window and at each row start,
     else one byte rolled in under the 2k-bit mask, the direct uint32 code
-    for a window with a negative byte). ``per_thread`` 0: the launch's
-    choice. Valid iff w <= length - k in wrapping int32 and no byte >= 4."""
+    for a window with a negative byte). At k <= 0 nothing is staged and a
+    thread reads no byte: code 0 where w <= length - k, rolling its row's
+    length in at each row start. ``per_thread`` 0: the launch's choice.
+    Valid iff w <= length - k in wrapping int32 and no byte >= 4."""
     rng = np.random.default_rng(seed)
     R, L = codes.shape
     W = L - k + 1
@@ -252,8 +267,9 @@ def _kmer_codes_mirror(codes: np.ndarray, lengths: np.ndarray, k: int,
     flat = codes.reshape(-1).astype(np.int64)
     km = np.full(R * W, SENT, dtype=np.int64)
     ok = np.zeros(R * W, dtype=bool)
-    mask, kmask = (1 << (2 * k)) - 1, (1 << k) - 1
-    cap = (span - 1 + ((span - 1) // W + 1) * (k - 1) + k + 30) // 16 + 1  # kmer_codes_lines
+    mask, kmask = ((1 << (2 * k)) - 1, (1 << k) - 1) if k > 0 else (0, 0)
+    # kmer_codes_lines
+    cap = (span - 1 + ((span - 1) // W + 1) * (k - 1) + k + 30) // 16 + 1 if k > 0 else 0
     assert max(16 * cap + 4 * (cap + 2) + 2 * (cap + 4), 8 * span) <= 48 * 1024
 
     def direct(x):  # the JAX function's uint32 code of the bytes x
@@ -267,6 +283,18 @@ def _kmer_codes_mirror(codes: np.ndarray, lengths: np.ndarray, k: int,
 
     for e0 in range(0, R * W, span):
         e_end = min(e0 + span, R * W)
+        if k <= 0:  # windows of no base: no stage
+            for first in range(e0, e_end, per_thread):
+                r, w = divmod(first, W)
+                for e in range(first, min(first + per_thread, e_end)):
+                    if e == first or w == 0:  # a row's length, at its first window
+                        last = lasts(r)
+                    ok[e] = w <= last
+                    km[e] = 0 if ok[e] else SENT
+                    w += 1
+                    if w == W:
+                        r, w = r + 1, 0
+            continue
         r0, r1 = e0 // W, (e_end - 1) // W
         lo, hi = r0 * L + e0 - r0 * W, r1 * L + (e_end - 1 - r1 * W) + k
         base = lo - (lo + offset) % 16  # stage byte i is flat byte base + i
@@ -343,11 +371,11 @@ def _brev64(y: np.ndarray) -> np.ndarray:
 def _revcomp_mirror(x: np.ndarray, k: int) -> np.ndarray:
     """revcomp (csrc/kmer.cu) per code of any int64: the 64 bits reversed,
     neighbouring bits swapped back, complemented, shifted right by 64 -
-    2k; SENTINEL kept."""
+    2k (k <= 0: 0); SENTINEL kept."""
     v = np.asarray(x, dtype=np.int64)
     y = _brev64(v.astype(np.uint64))
     y = ((y >> np.uint64(1)) & _M64[0]) | ((y & _M64[0]) << np.uint64(1))
-    y = ~y >> np.uint64(64 - 2 * k)
+    y = ~y >> np.uint64(64 - 2 * k) if k > 0 else np.zeros_like(y)
     return np.where(v == SENT, SENT, y.astype(np.int64))
 
 
@@ -607,9 +635,9 @@ def _held_to_jax_and_plain(codes, lengths, k, **span):
     return km, ok
 
 
-@pytest.mark.parametrize("k", [1, 5, 11, 15])
+@pytest.mark.parametrize("k", [-2, -1, 0, 1, 5, 11, 15])
 def test_kmer_codes_mirror_matches_jax_and_plain(k):
-    rng = np.random.default_rng(k)
+    rng = np.random.default_rng(k % 1000)  # (a seed >= 0)
     R, L = 24, 40
     codes = rng.integers(0, 4, (R, L)).astype(np.int8)
     codes[rng.random((R, L)) < 0.03] = rng.integers(4, 128, 1)[0]  # N as 4..127
@@ -658,6 +686,10 @@ def _span_cases():
         "one_row_of_5000": (*reads(1, 5000, 0.002), 15),
         "poly_a_rows": (np.zeros((20, 100), np.int8), np.full(20, 100, np.int32), 15),
         "negative_bytes_rolled": (*reads(12, 64, 0.02, 0.03), 7),
+        "k_0": (*reads(37, 23, 0.1, 0.05), 0),  # W = L + 1: no byte read
+        "k_minus_2_reads_of_no_base": (*reads(50, 0), -2),  # W = 3 < V: many rows a thread
+        "k_minus_1_lengths_past_int32": (reads(20, 7)[0], np.array(
+            [0, -1, -2, 7, 8, 2**31 - 1, -2**31] * 2 + [3] * 6, np.int32), -1),
     }
 
 
@@ -674,20 +706,23 @@ def test_kmer_codes_mirror_on_span_edges(case):
 
 
 def _revcomp_inputs(rng, k):
-    """Codes of 2k bits, uint32 values with bits above 2k, and SENTINEL."""
-    x = np.concatenate([rng.integers(0, 1 << (2 * k), 200), rng.integers(0, 1 << 32, 100),
-                        [0, (1 << (2 * k)) - 1, 1 << (2 * k), SENT - 1]]).astype(np.int64)
+    """Codes of 2k bits (k <= 0: 0), uint32 values with bits above 2k, and
+    SENTINEL."""
+    top = 1 << (2 * max(k, 0))
+    x = np.concatenate([rng.integers(0, top, 200), rng.integers(0, 1 << 32, 100),
+                        [0, top - 1, top, SENT - 1]]).astype(np.int64)
     x[::7] = SENT
     return x
 
 
-@pytest.mark.parametrize("k", range(1, 16))
+@pytest.mark.parametrize("k", range(-2, 16))
 def test_revcomp_mirror_matches_jax_and_plain(k):
-    """The constant-time reverse complement, for every k: against JAX on
+    """The constant-time reverse complement, for every k (k <= 0: every
+    code but SENTINEL to 0): against JAX on
     uint32 codes (SENTINEL and bits above 2k included), against the plain
     version on any int64 (negative ones too), and through the kernel's
     tiling at both tile sizes."""
-    rng = np.random.default_rng(k)
+    rng = np.random.default_rng(k % 1000)  # (a seed >= 0)
     x = _revcomp_inputs(rng, k)
     want = np.asarray(jk.revcomp_kmers(jnp.asarray(x.astype(np.uint32)), k))
     np.testing.assert_array_equal(_revcomp_mirror(x, k).astype(np.uint32), want)
@@ -704,7 +739,7 @@ def test_both_strands_mirror_matches_jax_and_plain(shape):
     ``concatenate([x, revcomp_kmers(x, k)])`` (row by row for [G, M]), and
     the plain version, at the kernel's tiling and at small tiles."""
     rng = np.random.default_rng(sum(shape))
-    for k in (1, 8, 15):
+    for k in (-1, 0, 1, 8, 15):
         x = rng.choice(_revcomp_inputs(rng, k), shape)
         want = _jax_rows(lambda r: jnp.concatenate([r, jk.revcomp_kmers(r, k)]),
                          jnp.asarray(x.reshape(-1, shape[-1]).astype(np.uint32)))[0]
@@ -846,7 +881,7 @@ def test_subtract_mirror_matches_jax(G, with_normal):
 def test_subtract_mirror_on_sentinel_and_empty_tables():
     """All-SENTINEL tables subtract nothing (against JAX and the plain
     version); a table of width 0 is refused where there are queries, as
-    JAX (TypeError) and the plain version (RuntimeError) fail on it."""
+    JAX and the plain version refuse it (TypeError both)."""
     rng = np.random.default_rng(5)
     raw = np.sort(rng.integers(0, 30, (2, 40)), axis=1)
     raw[1, 25:] = SENT
@@ -860,7 +895,7 @@ def test_subtract_mirror_on_sentinel_and_empty_tables():
     for r, normal in ((ref, empty), (empty, None), (empty, empty)):
         with pytest.raises(ValueError, match="width 0"):
             _subtract_mirror(v, c, r, normal)
-        with pytest.raises(RuntimeError, match="out of bounds"):
+        with pytest.raises(TypeError, match="width 0"):
             tk.subtract_sorted_plain(*(torch.from_numpy(a) for a in (v, c, r)),
                                      None if normal is None else torch.from_numpy(normal))
     with pytest.raises(TypeError):

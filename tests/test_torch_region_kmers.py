@@ -439,13 +439,18 @@ def _windows_mirror(buf, codes_at, lengths_at, R, L, k, stage_lines, threads, sk
     threads, ...), computed by the rolling code (k steps at its first
     window, the direct uint32 code where the window holds a negative
     byte); ``skip``: the windows of the row before ``codes_at`` (a CTA's
-    part of the reference's row: w <= length - skip - k). Yields (chunk,
-    round, iteration, thread, code or SENTINEL) in the order round,
-    iteration, thread."""
-    codes = buf[codes_at:codes_at + R * L].view(np.int8).reshape(R, L)
+    part of the reference's row: w <= length - skip - k). At k <= 0 a
+    window holds no base: every row in one chunk, no byte read, code 0
+    where w <= length - skip - k (W = L - k + 1; in a part of the
+    reference L may be below 0). Yields (chunk, round, iteration, thread,
+    code or SENTINEL) in the order round, iteration, thread."""
     lengths = buf[lengths_at:lengths_at + 4 * R].view(np.int32)
-    W, mask = L - k + 1, (1 << (2 * k)) - 1
-    rows_per = (16 * stage_lines - 30) // L
+    W = L - k + 1
+    if k > 0:
+        codes = buf[codes_at:codes_at + R * L].view(np.int8).reshape(R, L)
+        mask, rows_per = (1 << (2 * k)) - 1, (16 * stage_lines - 30) // L
+    else:
+        codes, mask, rows_per = None, 0, R
     assert rows_per >= 1
     for chunk, r0 in enumerate(range(0, R, rows_per)):
         rows = min(R, r0 + rows_per) - r0
@@ -461,7 +466,7 @@ def _windows_mirror(buf, codes_at, lengths_at, R, L, k, stage_lines, threads, sk
                 w1 = min(W, w0 + per)
                 if w0 >= w1:
                     continue
-                row = codes[r0 + r]
+                row = codes[r0 + r] if k > 0 else None
                 last = (int(lengths[r0 + r]) - skip - k + (1 << 31)) % (1 << 32) - (1 << 31)
                 acc, bad_at, neg_at = 0, -1, -1
                 for j in range(k):
@@ -470,7 +475,7 @@ def _windows_mirror(buf, codes_at, lengths_at, R, L, k, stage_lines, threads, sk
                     neg_at = w0 + j if x < 0 else neg_at
                     acc = (acc << 2) | (x & 3)
                 for w in range(w0, w1):
-                    if w > w0:
+                    if w > w0 and k > 0:
                         x = int(row[w + k - 1])
                         bad_at = w + k - 1 if x >= 4 else bad_at
                         neg_at = w + k - 1 if x < 0 else neg_at
@@ -559,7 +564,7 @@ def _region_mirror(segments, total, k, min_count, threads=_CU["THREADS"], least_
         at, lengths_at, _, width = sets[name]
         w = width - k + 1
         w0, w1 = w * r // C, w * (r + 1) // C
-        return at + w0, lengths_at, int(w1 > w0), w1 - w0 + k - 1, w0
+        return at + (w0 if k > 0 else 0), lengths_at, int(w1 > w0), w1 - w0 + k - 1, w0
 
     def codes(part):
         return [code for *_, code in _windows_mirror(buf, *part[:4], k, stage_lines, threads,
