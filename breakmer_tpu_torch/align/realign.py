@@ -356,12 +356,12 @@ def _realign_contigs(
         for b in range(B):
             qb[b, : len(flat_q[b])] = flat_q[b]
             tb[b, : len(flat_t[b])] = flat_t[b]
-        # round 1 (no masked intervals, N-free contigs/windows) qualifies
-        # for the kernel's cheap-substitution path; masked-requery rounds
-        # have mid-sequence 4s and take the generic path
-        no_n = all(int(a.max(initial=0)) < 4 for a in flat_q) and all(
-            int(a.max(initial=0)) < 4 for a in flat_t
-        )
+        # round 1 (no masked intervals, N-free contigs/windows, every code
+        # a base 0-3) qualifies for the kernel's cheap-substitution path;
+        # masked-requery rounds have mid-sequence 4s and take the generic
+        # path
+        no_n = all(0 <= int(a.min(initial=0)) and int(a.max(initial=0)) < 4
+                   for a in (*flat_q, *flat_t))
         scores, q_ends, t_ends = sw_score_batch(qb, tb, params, no_n=no_n,
                                                device=device)
         # ---- per-contig winner processing (host) --------------------------

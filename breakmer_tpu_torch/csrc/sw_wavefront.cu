@@ -26,7 +26,7 @@
 // What bounds it on this card: integer issue. Each SM partition issues 16
 // int32 lanes a clock (64 an SM), so a warp instruction of the integer
 // pipe takes two clocks, and the sweep is a chain of them. Per cell the
-// no_n form issues
+// packed no_n form executes
 //   sub = byte tc of a per-step score table, selected by
 //         the row's query code (prmt)                         1
 //   E'  = __viaddmax_s32(H_left, ge*j - go, E'_left)           1
@@ -39,7 +39,9 @@
 // FMA pipe at the same rate beside them, one a cell, so it never bounds
 // the sweep: OPS = 7 for the bound. E' = E + ge * j is E without its
 // per-column drift, so it needs no add of its own; the packed key keeps
-// the first column of a row's best in one max. The bound of a launch is
+// the first column of a row's best in one max. (The unpacked form
+// computes E = __viaddmax_s32(H_left, -go, E_left - ge) and keeps the
+// column apart: 8 or 9 operations a cell.) The bound of a launch is
 // B * Lq * Lt * OPS over (SMs * 64 * SM clock). Inputs and outputs are
 // B * (Lq + Lt) + 12 * B bytes, so the bound is compute, not memory. The
 // steps add a fixed cost (the shuffles, the table, the loop), so a larger
@@ -80,15 +82,18 @@
 // which is the diagonal of column 0). Within a row the cells are visited
 // in increasing j, hence increasing i + j, so the first best of a row is
 // the one to keep; the rows, lanes, strips and the pair are then reduced
-// on the full key (score desc, i + j asc, i asc). The packed key needs a
-// score below 2^15 and Lt <= 2^16; past that the kernel keeps score and
-// column apart (PACK = false). no_n (no mid-sequence N) re-encodes pads
-// to never-matching codes (query 6, target 7) and drops the N test from
-// the substitution; the outputs are bit-identical (see sw_pallas.py's
-// no_n proof); its score table holds bytes, so the wrapper takes it only
-// for match and mismatch within int8. NEG = -2^28: E and F never fall
-// below -go after their first column and E' stays below 2^28 + ge * Lt,
-// so no value wraps while |gap costs| < 2^20 and |ge| * Lt < 2^26.
+// on the full key (score desc, i + j asc, i asc). The packed form
+// (PACK) needs every H below 2^15, Lt <= 2^16 and E' = E + ge * j inside
+// int32; the wrapper takes it only where a bound of H that holds for any
+// sign of any parameter says so (ops/sw_cuda.py::packs), and past that the
+// kernel keeps score and column apart and E as the plain version does
+// (PACK = false): the plain version's own int32 operations, cell for
+// cell. no_n (every code a base 0-3 or a trailing pad) re-encodes the
+// codes outside 0-3 to never-matching ones (query 6, target 7) and drops
+// the N test from the substitution; the outputs are bit-identical (see
+// sw_pallas.py's no_n proof); its score table holds bytes read back
+// sign-extended, so the wrapper takes it only for match and -mismatch
+// within int8.
 
 //
 // The block form (sw_wavefront_block_kernel). A launch of few pairs leaves
@@ -197,7 +202,7 @@ __device__ __forceinline__ void init_rows(const int8_t* qb, int row0, int Lq, in
     const int i = row0 + r;
     int c = i < Lq ? qb[i] : 4;
     if (NO_N) {
-      c = c >= 4 ? 6 : c;
+      c = (unsigned)c >= 4u ? 6 : c;  // N, pad or a code below 0: the query's pad
       qs[r] = c | ((8 | c) << 4) | ((8 | c) << 8) | ((8 | c) << 12);
     } else {
       qs[r] = c;
@@ -218,9 +223,10 @@ __device__ __forceinline__ void sw_cells(int j, int tc, int& hu, int& fu, int dg
                                          int (&bk)[R], int (&bj)[R], int go, int ge,
                                          int match, int mismatch, int nm4, int xm,
                                          int key_scale) {
-  int ea = ge * j - go;  // E' addend; none at j == 0
+  // packed: E' addend (none at j == 0), E = E' + ce, the key's column
+  int ea = ge * j - go;
   if (CHECK && j == 0) ea = NEG;
-  const int ce = -ge * j;  // E = E' + ce
+  const int ce = -ge * j;
   const int cj = 65535 - j;
   int tlo = 0, thi = 0, eqv = 0, nev = 0;
   if (NO_N) {
@@ -239,12 +245,16 @@ __device__ __forceinline__ void sw_cells(int j, int tc, int& hu, int& fu, int dg
       sub = qs[r] == tc ? eqv : nev;
       if (qs[r] >= 4) sub = NEG;
     }
-    const int e = __viaddmax_s32(H[r], ea, E[r]);
     const int f = __viaddmax_s32(hu, -go, fu - ge);
-    const int h = __viaddmax_s32_relu(dg, sub, __viaddmax_s32(e, ce, f));
+    int e, h;
     if (PACK) {
+      e = __viaddmax_s32(H[r], ea, E[r]);
+      h = __viaddmax_s32_relu(dg, sub, __viaddmax_s32(e, ce, f));
       bk[r] = max(bk[r], h * key_scale + cj);
-    } else {
+    } else {  // the plain version's own operations: E from H - go and E - ge
+      e = __viaddmax_s32(H[r], -go, E[r] - ge);
+      if (CHECK && j == 0) e = NEG;
+      h = __viaddmax_s32_relu(dg, sub, max(e, f));
       bool keep;
       bk[r] = __vibmax_s32(bk[r], h, &keep);
       bj[r] = keep ? bj[r] : j;
@@ -341,7 +351,7 @@ __global__ void __launch_bounds__(MAX_THREADS) sw_wavefront_kernel(
   auto t_chunk = [&](int c0) {
     const int j = c0 + lane;
     int c = lane < CHUNK && j < Lt ? (int)__ldg(tb + j) : 7;
-    if (NO_N && c >= 4) c = 7;
+    if (NO_N && (unsigned)c >= 4u) c = 7;
     return c;
   };
   auto b_chunk = [&](int c0) {  // H, F above the strip at column c0 + lane
@@ -456,16 +466,16 @@ __host__ __device__ constexpr int block_smem_bytes(int S, int Lt) {
   return block_head_bytes(S) + (TPAD + Lt + TTAIL + 15) / 16 * 16;
 }
 
-// A word of 4 target codes in the no_n form: a byte >= 4 (N or pad)
-// becomes 7; negative bytes stay.
+// A word of 4 target codes in the no_n form: a byte >= 4 (N or pad) or
+// below 0 becomes 7 (the byte's bit 7, or a carry into it from bits 2-6).
 __device__ __forceinline__ unsigned no_n_word(unsigned w) {
-  const unsigned big = ((w & 0x7c7c7c7cu) + 0x7c7c7c7cu) & ~w & 0x80808080u;
+  const unsigned big = (((w & 0x7c7c7c7cu) + 0x7c7c7c7cu) | w) & 0x80808080u;
   const unsigned mask = (big >> 7) * 0xffu;
   return (w & ~mask) | (0x07070707u & mask);
 }
 
 // tg[0 .. TPAD + Lt + TTAIL): 7, then the pair's target codes (no_n: a
-// code >= 4 as 7), then 7; by the whole block, 16 bytes a thread where
+// code outside 0-3 as 7), then 7; by the whole block, 16 bytes a thread where
 // the row is 16-byte aligned.
 template <bool NO_N>
 __device__ __forceinline__ void stage_target(const int8_t* tb, int Lt, int8_t* tg) {
@@ -490,7 +500,7 @@ __device__ __forceinline__ void stage_target(const int8_t* tb, int Lt, int8_t* t
     const int j = i - TPAD;
     if (j >= 0 && j < vec) continue;
     int c = j >= 0 && j < Lt ? (int)__ldg(tb + j) : 7;
-    if (NO_N && c >= 4) c = 7;
+    if (NO_N && (unsigned)c >= 4u) c = 7;
     tg[i] = (int8_t)c;
   }
 }
@@ -715,10 +725,10 @@ extern "C" {
 // wrapper (ops/sw_cuda.py::launch_plan): ``rows_per_lane`` R in {4, 8},
 // ``blocks`` blocks of ``threads`` threads (a multiple of 32, at
 // most 128); ``pack`` keeps a row's best as one key (scores < 2^15, Lt <=
-// 2^16). Device pointers: q [B, Lq] and t [B, Lt] int8; outputs [B]
-// int32; when Lq > 32 * R, header [1 + B + 3 * B * S] int32 and bnd
-// [B * (S - 1) * Lt] int4, both zeroed, else both null. Returns the
-// cudaError_t of the launch (0 on success).
+// 2^16) and E as E + ge * j. Device pointers: q [B, Lq] and t [B, Lt]
+// int8; outputs [B] int32; when Lq > 32 * R, header [1 + B + 3 * B * S]
+// int32 and bnd [B * (S - 1) * Lt] int4, both zeroed, else both null.
+// Returns the cudaError_t of the launch (0 on success).
 int sw_wavefront_launch(const void* q, const void* t, int B, int Lq, int Lt, int match,
                         int mismatch, int gap_open, int gap_extend, int no_n, int pack,
                         int rows_per_lane, int blocks, int threads, void* header,

@@ -42,6 +42,14 @@ def sw_score(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Best local-alignment score per (query, target) pair.
 
+    The domain is the JAX scan's: any int8 code (one below 0 is a base
+    that matches only its own code; 4 and above score NEG) and any int32
+    scoring parameters of either sign, in int32 arithmetic that is exact
+    until a value wraps, as the scan's does (row 0's F, NEG - gap_open -
+    gap_extend, wraps first as the gap costs grow). At Lt = 0
+    every pair gives (0, -1, -1); Lq = 0 raises ``ValueError``, as the JAX
+    scan does.
+
     Args:
       q: [B, Lq] int8 base codes (>= 4 = pad/N).
       t: [B, Lt] int8 base codes (>= 4 = pad/N).
@@ -52,6 +60,8 @@ def sw_score(
     """
     B, Lq = q.shape
     Lt = t.shape[1]
+    if Lq == 0:
+        raise ValueError(f"sw_score: a query of no base (q {tuple(q.shape)})")
     dev = q.device
     i32 = torch.int32
     go = params.gap_open + params.gap_extend

@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from breakmer_tpu_torch import _build
-from breakmer_tpu_torch.ops.sw import SWParams
+from breakmer_tpu_torch.ops.sw import NEG, SWParams
 
 # kernel launches made by sw_score_cuda (one per call with B > 0), in all
 # and by form
@@ -53,7 +53,9 @@ FEW_PAIRS = 12
 # NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py's step-cost table
 # (sw_step_costs).
 STEP_CYCLES = {2: (151, 74, 78), 4: (217, 113, 149), 8: (274, 171, 127)}
-_GAP_LIMIT = 1 << 20        # |scoring parameter| bound that keeps NEG from wrapping
+INT32 = (-(1 << 31), (1 << 31) - 1)
+KEY_SCORES, KEY_COLUMNS = 1 << 15, 1 << 16  # what one packed row key holds
+TPU_SCORE_LIMIT = 1 << 28  # match * min(Lq, Lt) the TPU kernel refuses at
 
 
 class LaunchPlan(NamedTuple):
@@ -66,7 +68,9 @@ class LaunchPlan(NamedTuple):
     (H, j + 1, F, j + 1) line a column. ``form`` "block": block b is pair
     b, its warp k strip k, with ``smem_bytes`` of shared memory (the
     boundary rings, the strips' bests, the target) and no scratch.
-    ``pack``: a row's best is one key (scores < 2^15, Lt <= 2^16)."""
+    ``pack``: a row's best is one key H * 2^16 + 65535 - j, and E is kept
+    as E + ge * j (``packs``); else score and column apart and E as the
+    plain version has it."""
     rows_per_lane: int
     strips: int
     warps: int
@@ -131,12 +135,49 @@ def _rows_per_lane(B: int, Lq: int, Lt: int, sms: int, rows=ROWS_PER_LANE) -> in
     return min(rows, key=lambda R: (step_clocks(B, Lq, Lt, R, sms), -R))
 
 
-@functools.lru_cache(maxsize=1024)  # a wrapper call asks again for each launch
+def score_bound(Lq: int, Lt: int, params: SWParams) -> int:
+    """U, a bound of every H the plain version computes for a pair of Lq x
+    Lt while its arithmetic stays in int32, for any sign of any parameter.
+    An H above 0 is the score of a path from a relu restart: at most
+    min(Lq, Lt) diagonal steps, each adding match or -mismatch (NEG at an
+    N), and at most Lq + Lt gapped steps, a gap of g adding -go - ge (g - 1)
+    <= g max(-go, -ge) (go = gap_open + gap_extend, ge = gap_extend). A path
+    from E's NEG at column 0 or F's at row 0 scores less than from 0."""
+    go = params.gap_open + params.gap_extend
+    return (min(Lq, Lt) * max(params.match, -params.mismatch, 0)
+            + (Lq + Lt) * max(-go, -params.gap_extend, 0))
+
+
+def plain_in_int32(Lq: int, Lt: int, params: SWParams) -> bool:
+    """Whether no value the plain version computes can leave int32: with P
+    the largest of |match|, |mismatch|, |go|, |ge|, every value lies in
+    [NEG - 2 P, U + P] (E and F of row 0 and column 0 start at NEG and
+    lose at most 2 P before a path's first H >= 0 takes over)."""
+    go = params.gap_open + params.gap_extend
+    P = max(abs(params.match), abs(params.mismatch), abs(go), abs(params.gap_extend))
+    return NEG - 2 * P >= INT32[0] and score_bound(Lq, Lt, params) + P <= INT32[1]
+
+
+def packs(Lq: int, Lt: int, params: SWParams) -> bool:
+    """Whether the packed form is exact for pairs of Lq x Lt: the plain
+    version's values stay in int32 and below KEY_SCORES (U < 2^15), the
+    columns fit the key (Lt <= 2^16), and the kernel's E + ge * j (j < Lt +
+    32 counting the lanes' ramp) stays in int32: U + |go| + |ge| (Lt + 32)
+    < 2^31. Past that the unpacked form takes the call."""
+    if not plain_in_int32(Lq, Lt, params):
+        return False
+    U = score_bound(Lq, Lt, params)
+    go = params.gap_open + params.gap_extend
+    return (U < KEY_SCORES and Lt <= KEY_COLUMNS
+            and U + abs(go) + abs(params.gap_extend) * (Lt + 32) <= INT32[1])
+
+
 def launch_plan(B: int, Lq: int, Lt: int, rows_per_lane: Optional[int] = None,
-                sms: int = SMS, match: int = 2) -> LaunchPlan:
+                sms: int = SMS, params: SWParams = SWParams()) -> LaunchPlan:
     """The launch of ``sw_score_cuda`` for B pairs of Lq x Lt on a card of
     ``sms`` SMs: the form and R of the fewest estimated clocks among those
-    that take the shape (the block form only for B <= FEW_PAIRS).
+    that take the shape (the block form only for B <= FEW_PAIRS), packed
+    where ``packs`` says the packed form is exact at ``params``.
     ``rows_per_lane`` forces R, and with it the form; a forced R that
     cannot take the shape raises."""
     if rows_per_lane is not None:
@@ -152,7 +193,7 @@ def launch_plan(B: int, Lq: int, Lt: int, rows_per_lane: Optional[int] = None,
     R = _rows_per_lane(B, Lq, Lt, sms, rows)
     S = _strips(Lq, R)
     warps = B * S
-    pack = match * min(Lq, Lt) < (1 << 15) and Lt <= (1 << 16)
+    pack = packs(Lq, Lt, params)
     if form_of(R) == "block":
         return LaunchPlan(rows_per_lane=R, strips=S, warps=warps, threads=32 * S, blocks=B,
                           pack=pack, header_ints=0, scratch_ints=0,
@@ -165,23 +206,74 @@ def launch_plan(B: int, Lq: int, Lt: int, rows_per_lane: Optional[int] = None,
         scratch_ints=-(-header // 4) * 4 + 4 * B * (S - 1) * Lt)
 
 
+class Admission(NamedTuple):
+    """What ``sw_score_cuda`` does with a call (``admit``): whether it takes
+    the no_n form, and the launch (None: nothing to launch, at B = 0 or Lt
+    = 0). The kernel gets the caller's parameters as they are."""
+    no_n: bool
+    plan: Optional[LaunchPlan]
+
+
+@functools.lru_cache(maxsize=1024)  # shapes and parameters repeat from call to call
+def admit(B: int, Lq: int, Lt: int, params: SWParams = SWParams(), no_n: bool = False,
+          rows_per_lane: Optional[int] = None, unpacked: bool = False,
+          sms: int = SMS) -> Admission:
+    """The wrapper's decision for B pairs of Lq x Lt, shapes and parameters
+    only (plain Python). Raises ``ValueError`` for exactly these: Lq = 0
+    (as the JAX scan); a parameter outside int32 (the kernel's C ints);
+    match * min(Lq, Lt) >= 2^28 (the TPU kernel's own refusal); Lq + Lt or
+    Lt + 32 past 2^31 (the kernel's int32 step and diagonal counters); an
+    R forced that the shape cannot take (``launch_plan``).
+
+    The no_n form is taken where the caller asks for it, mismatch > 0 and
+    gap_extend > 0 (the TPU kernel's conditions for the pads never to win),
+    the plain version stays in int32, and both match and -mismatch fit a
+    signed byte: its per-step score table holds them as bytes, read back
+    sign-extended. Outside the packed form's range (``packs``) and where
+    ``unpacked`` forces it, the kernel keeps E as the plain version does,
+    so it computes the plain version's own int32 operations cell for cell:
+    exact for every parameter the plain version does not wrap on, and as
+    the plain version wraps where it does."""
+    if Lq < 1:
+        raise ValueError(f"sw_score_cuda: a query of no base (Lq={Lq})")
+    if not all(INT32[0] <= x <= INT32[1] for x in (*params, params.gap_open + params.gap_extend)):
+        raise ValueError(f"sw_score_cuda: scoring parameters {tuple(params)} outside int32")
+    if params.match * min(Lq, Lt) >= TPU_SCORE_LIMIT:
+        raise ValueError("score range exceeds int32")
+    if Lq + Lt > INT32[1] or Lt + 32 > INT32[1]:
+        raise ValueError(f"sw_score_cuda: Lq={Lq}, Lt={Lt} past the kernel's int32 counters")
+    no_n = (bool(no_n) and plain_in_int32(Lq, Lt, params) and params.mismatch > 0
+            and params.gap_extend > 0
+            and -128 <= params.match <= 127 and params.mismatch <= 128)
+    plan = None
+    if B > 0 and Lt > 0:
+        plan = launch_plan(B, Lq, Lt, rows_per_lane, sms, params)
+        if unpacked:
+            plan = plan._replace(pack=False)
+    return Admission(no_n, plan)
+
+
 def sw_score_cuda(
     q: torch.Tensor, t: torch.Tensor, params: SWParams = SWParams(),
     no_n: bool = False, rows_per_lane: Optional[int] = None, unpacked: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Same contract as ``ops.sw.sw_score`` for CUDA tensors: q [B, Lq]
     and t [B, Lt] int8 on one card; returns (score, q_end, t_end), each
-    [B] int32 on that card. Raises on anything the kernel does not take
-    and on a launch the CUDA runtime refuses.
+    [B] int32 on that card, what the plain version returns wherever its
+    int32 arithmetic does not wrap. Raises ``ValueError`` before any launch
+    where ``admit`` refuses, and on a launch the CUDA runtime refuses. At
+    B = 0 or Lt = 0 it launches nothing: every pair gives (0, -1, -1).
 
-    no_n: caller asserts no mid-sequence N in either input; takes the
-    compare-and-select substitution (bit-identical results). Ignored
-    unless mismatch > 0 and gap_extend > 0, which the exactness argument
-    needs (as in the TPU kernel). rows_per_lane: forces the plan's R, and
+    no_n: caller asserts every code is a base 0-3 or a trailing pad (no
+    mid-sequence N, no code below 0); takes the compare-and-select
+    substitution (bit-identical results) where ``admit`` says. Under it a
+    code below 0 scores as a pad would (-mismatch against every code), not
+    as the plain version's base. rows_per_lane: forces the plan's R, and
     with it the form (``launch_plan``; an R the shape cannot take raises
-    before any launch); unpacked: keep a row's best as score and column apart, the
-    form the plan takes past the packed key's range, at any shape (the
-    card tests hold every instantiation against the plain version)."""
+    before any launch); unpacked: keep a row's best as score and column
+    apart and E as the plain version has it, the form the plan takes past
+    the packed one's range, at any shape (the card tests hold every
+    instantiation against the plain version)."""
     global LAUNCHES, _LAUNCH, _BLOCK_LAUNCH
 
     if q.device.type != "cuda" or t.device != q.device:
@@ -193,25 +285,16 @@ def sw_score_cuda(
         raise ValueError(f"sw_score_cuda: shapes {tuple(q.shape)}, {tuple(t.shape)}")
     B, Lq = q.shape
     Lt = t.shape[1]
-    if Lq < 1 or Lt < 1:
-        raise ValueError(f"sw_score_cuda: empty sequences (Lq={Lq}, Lt={Lt})")
-    if params.match * min(Lq, Lt) >= (1 << 28) or Lq + Lt >= (1 << 30):
-        raise ValueError("score range exceeds int32")
-    if any(abs(x) >= _GAP_LIMIT for x in params) or abs(params.gap_extend) * Lt >= (1 << 26):
-        raise ValueError(f"sw_score_cuda: scoring parameters {tuple(params)} out of range")
-    # the no_n form's score table holds match and -mismatch as bytes
-    no_n = (bool(no_n) and params.mismatch > 0 and params.gap_extend > 0
-            and params.match <= 127 and params.mismatch <= 128)
-    q = q.contiguous()
-    t = t.contiguous()
+    adm = admit(B, Lq, Lt, params, no_n, rows_per_lane, unpacked, _sms(q.device))
     out = torch.empty((3, B), dtype=torch.int32, device=q.device)
     score, q_end, t_end = out
-    if B == 0:
+    plan = adm.plan
+    if plan is None:  # no pair, or no target column: no cell scores
+        score.zero_()
+        out[1:].fill_(-1)
         return score, q_end, t_end
-
-    plan = launch_plan(B, Lq, Lt, rows_per_lane, _sms(q.device), params.match)
-    if unpacked:
-        plan = plan._replace(pack=False)
+    q = q.contiguous()
+    t = t.contiguous()
     what = lambda: f"sw_wavefront (B={B}, Lq={Lq}, Lt={Lt}, {plan})"  # noqa: E731
     if plan.form == "block":
         if _BLOCK_LAUNCH is None:
@@ -219,7 +302,7 @@ def sw_score_cuda(
         _build.launch(
             _BLOCK_LAUNCH, q.get_device(), what, q.data_ptr(), t.data_ptr(), B, Lq, Lt,
             params.match, params.mismatch, params.gap_open, params.gap_extend,
-            int(no_n), int(plan.pack), plan.rows_per_lane, plan.threads, plan.smem_bytes,
+            int(adm.no_n), int(plan.pack), plan.rows_per_lane, plan.threads, plan.smem_bytes,
             score.data_ptr(), q_end.data_ptr(), t_end.data_ptr(),
         )
     else:
@@ -233,7 +316,7 @@ def sw_score_cuda(
         _build.launch(
             _LAUNCH, q.get_device(), what, q.data_ptr(), t.data_ptr(), B, Lq, Lt,
             params.match, params.mismatch, params.gap_open, params.gap_extend,
-            int(no_n), int(plan.pack), plan.rows_per_lane, plan.blocks, plan.threads,
+            int(adm.no_n), int(plan.pack), plan.rows_per_lane, plan.blocks, plan.threads,
             header, bnd, score.data_ptr(), q_end.data_ptr(), t_end.data_ptr(),
         )
     LAUNCHES_BY_FORM[plan.form] += 1

@@ -1,6 +1,7 @@
 """Device time of the SW kernel's wrapper at given shapes, on the card.
 
     python /path/to/breakmer_tpu_torch/tools/sw_time.py B,Lq,Lt [B,Lq,Lt ...]
+    python /path/to/breakmer_tpu_torch/tools/sw_time.py --cases NAME[:no_n] ...
 
 Run from the root of a checkout, it times the ``sw_score_cuda`` of the
 ``breakmer_tpu_torch`` found there (the current directory goes first on
@@ -12,9 +13,16 @@ first sleeps while the host queues them), so the host's launch path is
 not in it. Each shape's host time a call (``sw_host_us``) is the median
 of 5 windows of 200 calls made back to back on the host clock, divided
 by 200: the wrapper's launch path, checks to the launch (the card runs
-behind and is waited for after each window). Prints one JSON line with
-the times and the card. It keeps its own copy of that timing
+behind and is waited for after each window). ``sw_unpacked_device_ms``
+times the unpacked form forced (``unpacked=True``) the same way. Prints
+one JSON line with the times and the card. It keeps its own copy of that timing
 (``timing.queued_ms``), since the checkout it times may predate it.
+
+``--cases`` instead runs each named case of this script's own
+``testing/sw_domain.py`` (``:no_n`` asks for the no_n form) through the
+checkout's ``sw_score_cuda`` and its plain ``sw_score`` on the CPU, and
+prints one JSON line a case with both answers (a refusal as its
+exception) and the card: the card's faults of a checkout, shown by input.
 """
 
 from __future__ import annotations
@@ -65,6 +73,40 @@ def host_us(fn, n: int = 200, windows: int = 5) -> float:
     return statistics.median(times)
 
 
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def show_cases(names) -> None:
+    import importlib.util
+
+    import torch
+
+    from breakmer_tpu_torch.ops import sw_cuda
+    from breakmer_tpu_torch.ops.sw import sw_score
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "testing",
+                        "sw_domain.py")
+    spec = importlib.util.spec_from_file_location("sw_domain", path)
+    domain = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(domain)
+    card = _card()
+    for arg in names:
+        name, _, flag = arg.partition(":")
+        c = domain.case(name)
+        q, t = torch.from_numpy(c["q"]), torch.from_numpy(c["t"])
+        plain = [x.tolist() for x in sw_score(q, t, c["params"])]
+        try:
+            got = [x.cpu().tolist() for x in sw_cuda.sw_score_cuda(
+                q.cuda(), t.cuda(), c["params"], no_n=flag == "no_n")]
+        except ValueError as exc:
+            got = f"ValueError: {exc}"
+        print(json.dumps({"case": name, "no_n": flag == "no_n", "plain": plain, "card": got,
+                          "equal": got == plain, "tree": os.getcwd(), "device": card}))
+
+
 def main(argv=None) -> None:
     sys.path.insert(0, os.getcwd())
     import numpy as np
@@ -74,20 +116,23 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         raise RuntimeError("sw_time needs a CUDA card")
-    shapes = [tuple(int(x) for x in a.split(",")) for a in (argv or sys.argv[1:])]
+    args = sys.argv[1:] if argv is None else argv
+    if args[:1] == ["--cases"]:
+        show_cases(args[1:])
+        return
+    shapes = [tuple(int(x) for x in a.split(",")) for a in args]
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
-    out, host = {}, {}
+    out, host, unpacked = {}, {}, {}
     for B, Lq, Lt in shapes:
         q = torch.from_numpy(rng.integers(0, 4, (B, Lq)).astype(np.int8)).to(dev)
         t = torch.from_numpy(rng.integers(0, 4, (B, Lt)).astype(np.int8)).to(dev)
         out[f"{B}x{Lq}x{Lt}"] = queued_ms(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True))
         host[f"{B}x{Lq}x{Lt}"] = host_us(lambda: sw_cuda.sw_score_cuda(q, t, no_n=True))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({"sw_device_ms": out, "sw_host_us": host, "tree": os.getcwd(),
-                      "card": card}))
+        unpacked[f"{B}x{Lq}x{Lt}"] = queued_ms(
+            lambda: sw_cuda.sw_score_cuda(q, t, no_n=True, unpacked=True))
+    print(json.dumps({"sw_device_ms": out, "sw_host_us": host,
+                      "sw_unpacked_device_ms": unpacked, "tree": os.getcwd(), "card": _card()}))
 
 
 if __name__ == "__main__":

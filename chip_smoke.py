@@ -130,6 +130,18 @@ phase's wall time is printed):
      region error, the counts set to 0 before each card run and read
      after it (the serial run one region kernel launch a region, the
      batched run every per-function kernel).
+ 23. the SW engine over its input domain (testing/sw_domain.py: signed
+     and large scoring parameters, the parent's limits among them,
+     crossed with the edges of the shapes and codes, Lt of 2^16 and 2^16
+     + 1 and queries of 2,049 and 10,240 rows among them): on every case
+     the kernel at the plan's form, R, pack and no_n and at every R
+     forced, packed and unpacked, exact against the plain version on the
+     card, each launch counted by form, a refusal only past the TPU
+     kernel's score limit and at Lq = 0, before any launch; then seed 1
+     at gap_open_pen = gap_extend_pen = 1,000,000, serial and batched, on
+     the card and on the CPU: svs.out, the VCF and the ledger rows
+     byte-identical, no region error, the SW launches by form read after
+     each card run.
 The last two lines are the kernel table (with each kernel's bound and
 the time of one PyTorch call computing the same function, null where
 there is none) and
@@ -2342,6 +2354,63 @@ def phase_kmer_domain(dev, card):
     return {"grid": grid, **runs}
 
 
+def phase_sw_domain(dev, card):
+    """Phase 23: the SW domain grid (signed and large scoring parameters
+    crossed with the edges of the shapes and codes, the wide cases too)
+    through the kernel at the plan's form, R, pack and no_n and at every R
+    forced, packed and unpacked, against the plain version; then seed 1 at
+    gap_open_pen = gap_extend_pen = 1,000,000 (the parent refused it on the
+    card), serial and batched, on the card against the CPU. Returns the SW
+    launches by form: of the grid, and of each card run."""
+    from breakmer_tpu_torch.ops import sw_cuda
+    from breakmer_tpu_torch.testing import sw_domain
+    from breakmer_tpu_torch.testing.scenarios import build_scenario
+
+    names = sw_domain.cases(card=True)
+    zero_launches()
+    refused = []
+    t0 = time.perf_counter()
+    for name in names:
+        try:
+            made = sw_domain.held_on_card(name, dev)
+        except AssertionError as exc:
+            raise SmokeFailure(f"SW domain {name}: card != plain {exc}") from exc
+        if made["refused"]:
+            refused.append(name)
+    grid = dict(sw_cuda.LAUNCHES_BY_FORM, all=sw_cuda.LAUNCHES)
+    check(grid["ticket"] > 0 and grid["block"] > 0, f"SW domain: launches {grid}")
+    check(all(n.startswith("score_limit_2^28/") or n.endswith("/lq_0") for n in refused),
+          f"SW domain: refused {refused}")
+    print(f"  SW domain: {len(names)} cases exact on the card ({len(refused)} refused before "
+          f"any launch: the TPU kernel's score limit, Lq = 0), launches {grid}, "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+    work = WORK / "ungapped"
+    work.mkdir(parents=True)
+    cfg_kwargs, _ = build_scenario(1, work, n_genes=2, kinds=["ins", "del"],
+                                   with_normal_germline=True)
+    runs = {}
+    for mode, batched in (("serial", False), ("batched", True)):
+        outs = {}
+        for device in ("cpu", "cuda"):
+            out = work / f"{mode}_{device}"
+            zero_launches()
+            run_panel({**cfg_kwargs, "gap_open_pen": 1_000_000, "gap_extend_pen": 1_000_000,
+                       "batch_regions": batched}, out, device)
+            if device == "cuda":
+                runs[mode] = dict(sw_cuda.LAUNCHES_BY_FORM, all=sw_cuda.LAUNCHES)
+            ledger = json.loads((out / "ledger.json").read_text())
+            outs[device] = ([(out / "output" / n).read_bytes() for n in OUTPUTS],
+                            {n: (e["rows"], e["vcf"], e["error"]) for n, e in ledger.items()})
+        check(outs["cuda"] == outs["cpu"], f"seed 1 ungapped, {mode}: CUDA != CPU")
+        check(len(outs["cuda"][1]) == 3, f"seed 1 ungapped, {mode}: {len(outs['cuda'][1])} regions")
+        check(runs[mode]["all"] > 0, f"seed 1 ungapped, {mode}: no SW launch")
+    print(f"  seed 1 at gap_open_pen = gap_extend_pen = 1,000,000: serial and batched "
+          f"byte-identical to the CPU, no region error; SW launches by form serial "
+          f"{runs['serial']}, batched {runs['batched']} [{card}]", flush=True)
+    return {"grid": grid, **runs}
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "sw_wavefront": ("breakmer_tpu_torch/csrc/sw_wavefront.cu",
                      "breakmer_tpu/ops/sw_pallas.py:179"),
@@ -2409,6 +2478,7 @@ def main() -> int:
     timed("bench_genome_e2e 100 Mbp", phase_genome_e2e, card)
     entry_launches, dryrun_launches = timed("graft entry", phase_graft_entry, card)
     domain_launches = timed("kmer domain, k <= 0", phase_kmer_domain, dev, card)
+    sw_domain_launches = timed("sw domain", phase_sw_domain, dev, card)
 
     head = next(r for r in sw_rows if tuple(r["shape"]) == HEADLINE)
     rows["sw_wavefront"] = dict(max_abs_err=sw_err, shape=head["shape"], ms=head["ms"],
@@ -2423,7 +2493,8 @@ def main() -> int:
                                 multihost_launches=multihost_launches,
                                 agreement_launches=agreement_launches,
                                 main_path_by_shape=serial_by_shape,
-                                batched_path_by_shape=batched_by_shape, **sw_forms)
+                                batched_path_by_shape=batched_by_shape,
+                                domain_launches=sw_domain_launches, **sw_forms)
     launches["sw_wavefront"] = sw_launches
     for name, row in kmer_rows.items():  # each kernel's path: serial, else batched
         path = "serial" if kmer_launches[name] else "batched"
@@ -2469,7 +2540,7 @@ def main() -> int:
                                              "serial_routes", "cluster", "cluster_sizes",
                                              "one_block_device_ms", "phase_clocks",
                                              "held_at", "median_region_call_ms",
-                                             "k_nonpositive_launches")
+                                             "k_nonpositive_launches", "domain_launches")
                          if k in row}})
     print(card_line())
     print(json.dumps({"kernels": table}))

@@ -89,7 +89,7 @@ def test_kernel_matches_plain_past_the_packed_key(card, B, Lq, Lt, pattern):
     rng = np.random.default_rng(Lq * Lt)
     for no_n, params in ((False, SWParams(40, 30, 50, 20)), (True, SWParams(40, 30, 50, 20)),
                          (False, SWParams(48, 0, 60, 10))):
-        assert not sw_cuda.launch_plan(B, Lq, Lt, match=params.match).pack
+        assert not sw_cuda.launch_plan(B, Lq, Lt, params=params).pack
         q, t = (torch.from_numpy(a).to(card) for a in _codes(rng, B, Lq, Lt, 0.0, pattern))
         ref = sw_score(q, t, params)
         assert int(ref[0].max()) >= 2 ** 15
@@ -159,7 +159,7 @@ def test_block_form_past_the_packed_key(card, B, Lq, Lt, pattern):
         for R in sw_cuda.BLOCK_ROWS_PER_LANE:
             if -(-Lq // (32 * R)) > 32:
                 continue
-            assert not sw_cuda.launch_plan(B, Lq, Lt, R, match=params.match).pack
+            assert not sw_cuda.launch_plan(B, Lq, Lt, R, params=params).pack
             got = sw_cuda.sw_score_cuda(q, t, params, no_n=no_n, rows_per_lane=R)
             for name, a, b in zip(("score", "q_end", "t_end"), ref, got):
                 assert torch.equal(a, b), f"{name} no_n={no_n} {params} R={R}"
@@ -1363,3 +1363,81 @@ def test_run_at_k_0_on_card_matches_cpu(card, batched, tmp_path):
         assert all(moved[n] > 0 for n in kmer_cuda.KERNELS), moved
     else:
         assert moved["region_kmers"] == kmer.ROUTES["fused"] - routes["fused"] > 0, moved
+
+
+# -- the SW engine over its input domain (signed and large parameters) --------
+
+from breakmer_tpu_torch.testing import sw_domain  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", list(dict.fromkeys(
+    name.split("/")[0] for name in sw_domain.cases(card=True))))
+def test_sw_domain_on_card_matches_plain(card, params):
+    """Every case of the SW domain grid at one parameter set, the wide ones
+    too, through the kernel at the plan's form, R, pack and no_n, at every R
+    forced, packed and unpacked, exact against the plain version on the
+    card, each launch counted by form; refused before any launch only past
+    the TPU kernel's score limit and at Lq = 0 (``sw_domain.held_on_card``)."""
+    for name in sw_domain.cases(card=True):
+        if name.split("/")[0] == params:
+            made = sw_domain.held_on_card(name, card)
+            B, Lq, Lt = (sw_domain.VARIANTS | sw_domain.WIDE_VARIANTS)[name.split("/")[1]][:3]
+            p = sw_domain.case(name)["params"]
+            assert made["refused"] == (Lq == 0 or p.match * min(Lq, Lt) >= 2**28), name
+            assert made["refused"] or (made["ticket"] + made["block"] > 0) == (B * Lt > 0), name
+
+
+@pytest.mark.cuda
+def test_sw_code_below_0_under_no_n_scores_as_a_pad(card):
+    """The no_n form's one deliberate divergence: codes below 0 (which
+    realign never asserts no_n for) score as pads, -mismatch against every
+    code; the plain version on those codes made codes that match nothing
+    gives the card's answer, and on the codes themselves another."""
+    c = sw_domain.case("default/negative_codes")
+    q, t = (torch.from_numpy(c[k]).to(card) for k in ("q", "t"))
+    qa, ta = torch.where(q < 0, -2, q).to(torch.int8), torch.where(t < 0, -3, t).to(torch.int8)
+    for R in (None, *sw_cuda.BLOCK_ROWS_PER_LANE, *sw_cuda.ROWS_PER_LANE):
+        for unpacked in (False, True):
+            got = sw_cuda.sw_score_cuda(q, t, no_n=True, rows_per_lane=R, unpacked=unpacked)
+            for a, b in zip(sw_score(qa, ta), got):
+                assert torch.equal(a, b), (R, unpacked)
+            assert not all(torch.equal(a, b) for a, b in zip(sw_score(q, t), got))
+            for a, b in zip(sw_score(q, t), sw_cuda.sw_score_cuda(q, t, rows_per_lane=R,
+                                                                  unpacked=unpacked)):
+                assert torch.equal(a, b), (R, unpacked, "generic form")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["serial", "batched"])
+def test_run_at_ungapped_penalties_on_card_matches_cpu(card, batched, tmp_path):
+    """Scenario seed 1 (two genes, a matched normal) at gap_open_pen =
+    gap_extend_pen = 1,000,000, which the parent refused on the card, through
+    the runner: svs.out, the VCF and the ledger rows equal the CPU run's,
+    no region error, the SW kernel launched."""
+    import json
+
+    from breakmer_tpu_torch.config import Config
+    from breakmer_tpu_torch.runner import Runner
+    from breakmer_tpu_torch.testing.scenarios import build_scenario
+
+    cfg_kwargs, _ = build_scenario(1, tmp_path, n_genes=2, kinds=["ins", "del"],
+                                   with_normal_germline=True)
+    cfg_kwargs.pop("reference_data_dir")
+    out = {}
+    for device in ("cpu", "cuda"):
+        adir = tmp_path / device
+        before = sw_cuda.LAUNCHES
+        runner = Runner(Config(**{**cfg_kwargs, "gap_open_pen": 1_000_000,
+                                  "gap_extend_pen": 1_000_000, "batch_regions": batched,
+                                  "analysis_dir": str(adir), "device": device,
+                                  "log_level": "WARNING"}))
+        runner.setup()
+        runner.run()
+        ledger = json.loads((adir / "ledger.json").read_text())
+        assert json.loads((adir / "metrics.json").read_text())["errors"] == {}, device
+        out[device] = ((adir / "output" / "prop_svs.out").read_bytes(),
+                       (adir / "output" / "prop.vcf").read_bytes(),
+                       {n: (e["rows"], e["vcf"], e["error"]) for n, e in ledger.items()})
+        assert (sw_cuda.LAUNCHES > before) == (device == "cuda")
+    assert out["cuda"] == out["cpu"]

@@ -183,7 +183,7 @@ def test_launch_plan_packs_the_row_key_only_in_its_range(match, Lq, Lt, pack):
     """One key H * 2^16 + 65535 - j holds a row's best while the scores stay
     below 2^15 and j below 2^16; past that the kernel keeps them apart."""
     for R in sw_cuda.ROWS_PER_LANE:
-        assert sw_cuda.launch_plan(3, Lq, Lt, R, match=match).pack is pack
+        assert sw_cuda.launch_plan(3, Lq, Lt, R, params=tsw.SWParams(match)).pack is pack
 
 
 def test_launch_plan_picks_rows_a_lane_by_its_estimate():
