@@ -124,8 +124,10 @@ def run_check() -> int:
 
 def run_profiled(runner: Runner, cfg: Config, resume: bool = False) -> None:
     """``runner.run`` under ``torch.profiler``: host activity, plus the
-    card's kernels when the run's device is a card. The Chrome trace goes
-    to ``<analysis_dir>/trace/trace.json`` (the JAX package writes its
+    card's kernels when the run's device is a card, and every METER stage
+    as a ``breakmer.<stage>`` range on the same timeline. A Runner not yet
+    set up sets up inside the trace too. The Chrome trace goes to
+    ``<analysis_dir>/trace/trace.json`` (the JAX package writes its
     ``jax.profiler`` trace to the same directory)."""
     from pathlib import Path
 
@@ -133,15 +135,20 @@ def run_profiled(runner: Runner, cfg: Config, resume: bool = False) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from breakmer_tpu_torch.device import resolve
+    from breakmer_tpu_torch.utils.meter import METER
 
     activities = [ProfilerActivity.CPU]
     if resolve(cfg.device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     out = Path(cfg.analysis_dir) / "trace"
-    with profile(activities=activities) as prof:
-        runner.run(resume=resume)
-        if ProfilerActivity.CUDA in activities:
-            torch.cuda.synchronize()
+    METER.profile = True
+    try:
+        with profile(activities=activities) as prof:
+            runner.run(resume=resume)
+            if ProfilerActivity.CUDA in activities:
+                torch.cuda.synchronize()
+    finally:
+        METER.profile = False
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "trace.json"))
 
@@ -155,15 +162,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         return run_check()
     cfg = load_config(args)
     runner = Runner(cfg)
-    runner.setup()
     if args.command == "preset":
+        runner.setup()
         runner.preset_ref_data()
         print(f"preset complete: {len(runner.targets)} targets cached")
         return 0
-    if getattr(args, "profile", False):
-        run_profiled(runner, cfg, resume=getattr(args, "resume", False))
+    if args.profile:
+        run_profiled(runner, cfg, resume=args.resume)  # set-up on the trace too
     else:
-        runner.run(resume=getattr(args, "resume", False))
+        runner.setup()
+        runner.run(resume=args.resume)
     print(f"{runner.total_calls} SV calls written to "
           f"{cfg.analysis_dir}/output/{cfg.analysis_name}_svs.out")
     return 0

@@ -76,6 +76,19 @@ class Runner:
 
     # -- setup (reference: runner.__init__ + start_blat_server) ------------
     def setup(self) -> None:
+        """Everything a sample's regions need, in METER spans: ``setup``
+        (the inputs, then the filters) with ``index_load`` (the genome
+        index) between."""
+        METER.reset()  # this sample's counters (-> metrics.json), set-up included
+        METER.owner = self
+        with METER.stage("setup"):
+            self._open_inputs()
+        with METER.stage("index_load"):
+            self._load_genome_index()
+        with METER.stage("setup"):
+            self._load_filters()
+
+    def _open_inputs(self) -> None:
         cfg = self.cfg
         cfg.validate()
         setup_logger(cfg.analysis_dir, cfg.log_level)
@@ -114,6 +127,9 @@ class Runner:
             self.fasta = TwoBitReader(cfg.reference_fasta)
         else:
             self.fasta = FastaIndex(cfg.reference_fasta)
+
+    def _load_genome_index(self) -> None:
+        cfg = self.cfg
         if cfg.build_genome_index:
             # gfServer replacement: in-memory whole-genome seed index,
             # cached as a packed artifact under reference_data_dir (the
@@ -164,6 +180,9 @@ class Runner:
             else:
                 log.info("shard_genome_index requested but only 1 device; "
                          "keeping the replicated index")
+
+    def _load_filters(self) -> None:
+        cfg = self.cfg
         if cfg.repeat_mask_file:
             self.rmask = RepeatMask.from_bed(cfg.repeat_mask_file)
         if cfg.other_regions_file:
@@ -583,12 +602,24 @@ class Runner:
                 names.append(rec.qname)
         return ReadBatch.from_seqs(seqs, names=names) if seqs else None
 
+    def _region_inputs(self, target: TargetRegion):
+        """A region's reference and its normal's reads, each in its METER
+        span (``normal_reads`` only where the sample has a normal)."""
+        with METER.stage("region_ref"):
+            ref = self.region_ref(target)
+        if not self.cfg.normal_bam_file:
+            return ref, None
+        with METER.stage("normal_reads"):
+            return ref, self._normal_batch(target)
+
     # -- main loop (reference: runner.run) ---------------------------------
     def run(self, resume: bool = False) -> List[SVEvent]:
         cfg = self.cfg
-        METER.reset()  # per-run stage/GCUPS counters (-> metrics.json)
         if not self.targets:
             self.setup()
+        if METER.owner is not self:  # the set-up METER holds is another run's
+            METER.reset()
+        METER.owner = None  # a second run() of this Runner meters itself alone
         try:
             if cfg.batch_regions:
                 return self._run_batched(resume)
@@ -611,8 +642,8 @@ class Runner:
                     name, len(ledger[name].get("rows", [])),
                 )
                 continue
-            t0 = time.time()
-            region_ref = self.region_ref(target)
+            t0 = time.perf_counter()
+            region_ref, normal_batch = self._region_inputs(target)
             chrom, start, end = target.span(cfg.region_buffer)
             pipe = TargetPipeline(
                 cfg,
@@ -620,7 +651,7 @@ class Runner:
                 region_ref,
                 genome=self.genome,
                 rmask=self.rmask,
-                normal_batch=self._normal_batch(target),
+                normal_batch=normal_batch,
                 device=self.device,
             )
             pipe.global_coverage_at = self._global_coverage_at
@@ -633,28 +664,29 @@ class Runner:
                 result = pipe.run(extract_result=ext)
             else:
                 result = pipe.run(self._region_records(chrom, start, end))
-            self._annotate_other_regions(result.events)
-            if cfg.keep_intermediates:
-                self._write_intermediates(name, pipe, result)
-            self.results.append(result)
-            all_events.extend(result.events)
-            log.info(
-                "target %s: %d records, %d sv reads, %d kmers, %d contigs, "
-                "%d calls (%d pre-filter) in %.2fs%s",
-                name, result.n_records, result.n_sv_reads,
-                result.n_sample_kmers, len(result.contigs),
-                len(result.events), len(result.all_events),
-                time.time() - t0,
-                f" ERROR={result.error}" if result.error else "",
-            )
-            ledger[name] = {
-                "rows": [event_row(ev) for ev in result.events],
-                "vcf": self._vcf_records(name, result.events),
-                "error": result.error,
-                "elapsed_s": round(time.time() - t0, 3),
-                "stats": _region_stats(result),
-            }
-            self._append_ledger(name, ledger[name])
+            with METER.stage("ledger"):
+                self._annotate_other_regions(result.events)
+                if cfg.keep_intermediates:
+                    self._write_intermediates(name, pipe, result)
+                self.results.append(result)
+                all_events.extend(result.events)
+                log.info(
+                    "target %s: %d records, %d sv reads, %d kmers, %d contigs, "
+                    "%d calls (%d pre-filter) in %.2fs%s",
+                    name, result.n_records, result.n_sv_reads,
+                    result.n_sample_kmers, len(result.contigs),
+                    len(result.events), len(result.all_events),
+                    time.perf_counter() - t0,
+                    f" ERROR={result.error}" if result.error else "",
+                )
+                ledger[name] = {
+                    "rows": [event_row(ev) for ev in result.events],
+                    "vcf": self._vcf_records(name, result.events),
+                    "error": result.error,
+                    "elapsed_s": round(time.perf_counter() - t0, 6),
+                    "stats": _region_stats(result),
+                }
+                self._append_ledger(name, ledger[name])
         return self._finalize(ledger, all_events, t_start)
 
     def _vcf_records(self, region: str, events: List[SVEvent]) -> List[dict]:
@@ -740,10 +772,10 @@ class Runner:
             if name in ledger:
                 log.info("target %s: resumed from ledger", name)
                 continue
-            region_ref = self.region_ref(target)
+            region_ref, normal_batch = self._region_inputs(target)
             pipe = TargetPipeline(
                 cfg, target, region_ref, genome=self.genome, rmask=self.rmask,
-                normal_batch=self._normal_batch(target), device=self.device,
+                normal_batch=normal_batch, device=self.device,
             )
             pipe.global_coverage_at = self._global_coverage_at
             pipe.user_filter = self.user_filter
@@ -851,7 +883,7 @@ class Runner:
             segs_by_region[owner].append(segs)
 
         def classify_one(name: str):
-            t0 = time.time()
+            t0 = time.perf_counter()
             pipe = pipes[name]
             try:
                 if getattr(pipe, "_assembly_error", None):
@@ -865,7 +897,7 @@ class Runner:
                     target=pipe.target, events=[], all_events=[], contigs=[],
                     error=f"{type(exc).__name__}: {exc}",
                 )
-            return result, time.time() - t0
+            return result, time.perf_counter() - t0
 
         if pool is not None:
             classified = dict(zip(order, pool.map(classify_one, order)))
@@ -873,31 +905,32 @@ class Runner:
         else:
             classified = None
         for name, pipe in pipes.items():
-            t0 = time.time()
+            t0 = time.perf_counter()
             if classified is not None:
                 result, dt = classified[name]
             else:
                 result, dt = classify_one(name)
-            self._annotate_other_regions(result.events)
-            if cfg.keep_intermediates:
-                self._write_intermediates(name, pipe, result)
-            self.results.append(result)
-            all_events.extend(result.events)
-            log.info(
-                "target %s [batched]: %d sv reads, %d kmers, %d contigs, "
-                "%d calls in %.2fs%s",
-                name, result.n_sv_reads, result.n_sample_kmers,
-                len(result.contigs), len(result.events), dt + time.time() - t0,
-                f" ERROR={result.error}" if result.error else "",
-            )
-            ledger[name] = {
-                "rows": [event_row(ev) for ev in result.events],
-                "vcf": self._vcf_records(name, result.events),
-                "error": result.error,
-                "elapsed_s": round(dt + time.time() - t0, 3),
-                "stats": _region_stats(result),
-            }
-            self._append_ledger(name, ledger[name])
+            with METER.stage("ledger"):
+                self._annotate_other_regions(result.events)
+                if cfg.keep_intermediates:
+                    self._write_intermediates(name, pipe, result)
+                self.results.append(result)
+                all_events.extend(result.events)
+                log.info(
+                    "target %s [batched]: %d sv reads, %d kmers, %d contigs, "
+                    "%d calls in %.2fs%s",
+                    name, result.n_sv_reads, result.n_sample_kmers,
+                    len(result.contigs), len(result.events), dt + time.perf_counter() - t0,
+                    f" ERROR={result.error}" if result.error else "",
+                )
+                ledger[name] = {
+                    "rows": [event_row(ev) for ev in result.events],
+                    "vcf": self._vcf_records(name, result.events),
+                    "error": result.error,
+                    "elapsed_s": round(dt + time.perf_counter() - t0, 6),
+                    "stats": _region_stats(result),
+                }
+                self._append_ledger(name, ledger[name])
         return self._finalize(ledger, all_events, t_start)
 
     def _annotate_other_regions(self, events: List[SVEvent]) -> None:
@@ -923,39 +956,40 @@ class Runner:
 
     def _finalize(self, ledger, all_events, t_start) -> List[SVEvent]:
         cfg = self.cfg
-        if cfg.multihost:
-            if self.process_index != 0:
-                log.info("multihost: worker %d done (%d targets); process 0 "
-                         "merges the output", self.process_index, len(self.targets))
-                return all_events
-            from breakmer_tpu_torch.parallel.multihost import merge_ledger_shards
+        if cfg.multihost and self.process_index != 0:
+            log.info("multihost: worker %d done (%d targets); process 0 "
+                     "merges the output", self.process_index, len(self.targets))
+            return all_events
+        with METER.stage("finalize"):
+            if cfg.multihost:
+                from breakmer_tpu_torch.parallel.multihost import merge_ledger_shards
 
-            ledger = merge_ledger_shards(
-                cfg.analysis_dir, self.all_target_names, self.process_count
+                ledger = merge_ledger_shards(
+                    cfg.analysis_dir, self.all_target_names, self.process_count
+                )
+            self._save_ledger(ledger if not cfg.multihost else self._load_ledger())
+            # aggregate from the ledger so resumed targets keep their calls
+            order = self.all_target_names if cfg.multihost else list(self.targets)
+            all_rows = [
+                row for name in order for row in ledger.get(name, {}).get("rows", [])
+            ]
+            out = Path(cfg.analysis_dir) / "output" / f"{cfg.analysis_name}_svs.out"
+            write_svs_rows(out, all_rows)
+            self.total_calls = len(all_rows)
+            from breakmer_tpu_torch.vcf import write_vcf
+
+            vcf_recs = [
+                rec for name in order for rec in ledger.get(name, {}).get("vcf", [])
+            ]
+            contigs = (
+                [(n, self.fasta.length(n)) for n in self.fasta.names]
+                if self.fasta is not None else []
             )
-        self._save_ledger(ledger if not cfg.multihost else self._load_ledger())
-        # aggregate from the ledger so resumed targets keep their calls
-        order = self.all_target_names if cfg.multihost else list(self.targets)
-        all_rows = [
-            row for name in order for row in ledger.get(name, {}).get("rows", [])
-        ]
-        out = Path(cfg.analysis_dir) / "output" / f"{cfg.analysis_name}_svs.out"
-        write_svs_rows(out, all_rows)
-        self.total_calls = len(all_rows)
-        from breakmer_tpu_torch.vcf import write_vcf
-
-        vcf_recs = [
-            rec for name in order for rec in ledger.get(name, {}).get("vcf", [])
-        ]
-        contigs = (
-            [(n, self.fasta.length(n)) for n in self.fasta.names]
-            if self.fasta is not None else []
-        )
-        write_vcf(
-            Path(cfg.analysis_dir) / "output" / f"{cfg.analysis_name}.vcf",
-            vcf_recs, contigs=contigs, sample=cfg.analysis_name,
-            reference=cfg.reference_fasta,
-        )
+            write_vcf(
+                Path(cfg.analysis_dir) / "output" / f"{cfg.analysis_name}.vcf",
+                vcf_recs, contigs=contigs, sample=cfg.analysis_name,
+                reference=cfg.reference_fasta,
+            )
         # structured per-stage counters (SURVEY.md §5 observability — the
         # reference exposes these only as log prose)
         metrics = {

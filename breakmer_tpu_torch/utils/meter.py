@@ -10,6 +10,11 @@ from BASELINE.json ("SW GCUPS/chip") — into ``<analysis_dir>/metrics.json``.
 Under multihost each process meters itself; process 0's metrics.json
 reports process 0's stages (region work is host-partitioned, so every
 process runs the same stage mix over its own shard).
+
+The port's runner also spans the rest of a sample's wall (set-up, the
+index load, region references, the normal's reads, the ledger and the
+output files), and ``cli run --profile`` puts every stage on the
+profiler's timeline as a ``breakmer.<name>`` range (``profile``).
 """
 
 from __future__ import annotations
@@ -21,9 +26,13 @@ from contextlib import contextmanager
 
 class Meter:
     def __init__(self) -> None:
+        # set by cli.run_profiled alone: a range that encloses launches is
+        # mirrored on the device timeline, which an idle count reads as busy
+        self.profile = False
         self.reset()
 
     def reset(self) -> None:
+        self.owner = None  # the Runner whose set-up these counters hold
         self.stage_s: dict = defaultdict(float)
         self.sw_cells = 0
         self.sw_s = 0.0
@@ -32,9 +41,16 @@ class Meter:
     @contextmanager
     def stage(self, name: str):
         t0 = time.perf_counter()
+        span = None  # the profiler's range lies inside the timed interval
+        if self.profile:
+            from torch.profiler import record_function
+
+            span = record_function(f"breakmer.{name}").__enter__()
         try:
             yield
         finally:
+            if span is not None:
+                span.__exit__(None, None, None)
             self.stage_s[name] += time.perf_counter() - t0
 
     def add_sw(self, cells: int, secs: float) -> None:
@@ -70,4 +86,6 @@ class Meter:
 # for coarse wall metrics). With nprocs>1 worker threads, stage() sums
 # per-thread wall across overlapping regions, so a stage's total can
 # exceed the run's wall clock — read stage_s as aggregate stage cost.
+# Runner.setup() resets it too and names itself ``owner``; run() then
+# keeps the set-up's spans, whether it or its caller called setup().
 METER = Meter()

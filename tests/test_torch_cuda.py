@@ -454,6 +454,19 @@ def test_cli_profile_traces_the_card(card, tmp_path):
     trace = json.loads((tmp_path / "profiled" / "trace" / "trace.json").read_text())
     kernels = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"}
     assert any("sw_wavefront" in k for k in kernels), sorted(kernels)[:20]
+    # every launch of the SW kernel lies inside a breakmer.realign range and
+    # of K5 inside breakmer.kmer_device, on the host's timeline
+    events = trace["traceEvents"]
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    for part, stage in (("sw_wavefront", "realign"), ("region_kmers_kernel", "kmer_device")):
+        ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "user_annotation" and e["name"] == f"breakmer.{stage}"]
+        launches = [launched_at[e["args"]["correlation"]] for e in events
+                    if e.get("cat") == "kernel" and part in e["name"]]
+        assert launches and ranges, (part, stage)
+        outside = [t for t in launches if not any(s <= t <= end for s, end in ranges)]
+        assert not outside, (part, stage, len(outside), len(launches))
 
 
 # -- the batched panel path (k-mer batch step, batched runner) ---------------
