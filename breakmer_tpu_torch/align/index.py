@@ -7,12 +7,20 @@ region (SeedIndex) and one genome-wide (GenomeIndex, chrom-concatenated
 with an offset table). Lookups are vectorized numpy binary searches; there
 is no socket hop and no subprocess. The genome index is built once and
 replicated per host (SURVEY.md §2b "index sharding"; chromosome-sharded
-variant is the parallel/ package's concern).
+variant is the parallel/ package's concern). It persists as a directory of
+``.npy`` arrays that ``GenomeIndex.load`` maps read-only, so every process
+on a node shares one copy in the OS page cache and reads only the pages
+its queries touch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import shutil
+import uuid
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -295,6 +303,25 @@ def _iter_chunk_seeds(fetch, length: int, k: int, step: int,
 # over-occupied tables).
 MAX_GENOME_K = 12
 
+# The persisted form (``GenomeIndex.save``): a directory that holds one
+# ``.npy`` an array and this file, written last.
+INDEX_FORMAT = 3
+_META = "meta.json"
+
+
+def _offsets_of(counts: np.ndarray) -> np.ndarray:
+    """The bucket table's offsets (int64, one more than ``counts``)."""
+    offsets = np.empty(len(counts) + 1, dtype=np.int64)
+    offsets[0] = 0
+    np.cumsum(counts, out=offsets[1:])
+    return offsets
+
+
+def is_saved(path) -> bool:
+    """Whether ``path`` holds a whole index that ``GenomeIndex.save`` wrote
+    (a save moves its directory into place only once it is complete)."""
+    return (Path(path) / _META).is_file()
+
 
 class GenomeIndex:
     """Whole-genome seed index over a 2-bit-resident genome — the
@@ -392,9 +419,7 @@ class GenomeIndex:
         counts = np.zeros(nb, dtype=np.int64)
         for c in per_chrom:
             counts += c
-        self._offsets = np.empty(nb + 1, dtype=np.int64)
-        self._offsets[0] = 0
-        np.cumsum(counts, out=self._offsets[1:])
+        self._offsets = _offsets_of(counts)
         del counts
         n_seeds = int(self._offsets[-1])
         pos_dtype = np.uint32 if total <= 0xFFFFFFFF else np.int64
@@ -556,64 +581,123 @@ class GenomeIndex:
     # -- persistence -------------------------------------------------------
 
     def save(self, path) -> None:
-        arrays = {
-            "__v2__": np.array([2], dtype=np.int64),
-            "__k__": np.array([self.k], dtype=np.int64),
-            "__step__": np.array([self.step], dtype=np.int64),
-            "__cap__": np.array([self.max_hits_per_seed], dtype=np.int64),
-            "__names__": np.array(self._chrom_names),
-            "__chrom_off__": self._chrom_off,
-            "__positions__": self._positions,
-        }
-        # bucket table: sparse (nonzero ids + counts) when panel-scale
-        # genomes leave most of the 4^k buckets empty, dense otherwise.
-        # Stored UNCOMPRESSED either way: deflate cost dominated load
-        # (~0.5 s inflating the zero-heavy dense table — as slow as
-        # rebuilding the panel index) and buys nothing on the
-        # entropy-dense positions array at genome scale.
-        counts = np.diff(self._offsets).astype(np.uint32)
-        nz = np.nonzero(counts)[0]
-        if 2 * len(nz) < len(counts):
-            arrays["__nb__"] = np.array([len(counts)], dtype=np.int64)
-            arrays["__bucket_nz__"] = nz.astype(np.uint32)
-            arrays["__bucket_nz_counts__"] = counts[nz]
-        else:
-            arrays["__bucket_counts__"] = counts
-        for c in self._chrom_names:
-            pc = self._packed[c]
-            arrays[f"{c}::packed"] = pc.packed
-            arrays[f"{c}::nstarts"] = pc.n_starts
-            arrays[f"{c}::nends"] = pc.n_ends
-            arrays[f"{c}::len"] = np.array([pc.length], dtype=np.int64)
-        np.savez(path, **arrays)
+        """Write the index as the directory ``path``: one ``.npy`` an array
+        (``offsets`` as the queries use it, int64, so that a load maps it
+        and computes nothing) and ``meta.json``. The directory is written
+        as a ``<path>.partial-*`` sibling and moved into place whole, so a
+        reader never takes half an index. Where another writer put a whole
+        index at ``path`` first (two processes on one cache), that one is
+        kept and this one dropped."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        # a name of its own for each writer, with the umask's mode (a cache
+        # that several users' processes read; mkdtemp would make it 0700)
+        stage = path.with_name(f"{path.name}.partial-{uuid.uuid4().hex}")
+        stage.mkdir()
+        try:
+            arrays = {"positions": self._positions}
+            # panel-scale genomes leave most of the 4^k buckets empty:
+            # there the nonzero counts are kept, and a load rebuilds the
+            # offsets (a cumsum over 4^k, far below a panel index's build)
+            counts = np.diff(self._offsets)
+            nz = np.nonzero(counts)[0]
+            sparse = 2 * len(nz) < len(counts)
+            if sparse:
+                arrays["bucket_nz"] = nz.astype(np.uint32)
+                arrays["bucket_nz_counts"] = counts[nz].astype(np.uint32)
+            else:
+                arrays["offsets"] = self._offsets
+            # every chromosome's packed words and N runs end to end, so a
+            # load maps five files whatever the assembly's count of contigs
+            # (each map is a few system calls, ~1.5 ms on a 9p file system)
+            pcs = [self._packed[c] for c in self._chrom_names]
+            for name, attr in (("packed", "packed"), ("nstarts", "n_starts"), ("nends", "n_ends")):
+                arrays[name] = np.concatenate([getattr(pc, attr) for pc in pcs])
+            for name, a in arrays.items():
+                np.save(stage / f"{name}.npy", np.ascontiguousarray(a))
+            meta = {"format": INDEX_FORMAT, "k": self.k, "step": self.step,
+                    "cap": self.max_hits_per_seed, "sparse": sparse,
+                    # [name, bases, packed words, N runs]
+                    "chroms": [[c, pc.length, len(pc.packed), len(pc.n_starts)]
+                               for c, pc in zip(self._chrom_names, pcs)]}
+            (stage / _META).write_text(json.dumps(meta))
+            try:
+                os.replace(stage, path)
+            except OSError:
+                if not is_saved(path):
+                    raise
+        finally:
+            shutil.rmtree(stage, ignore_errors=True)
 
     @classmethod
     def load(cls, path) -> "GenomeIndex":
-        data = np.load(path)
-        if "__v2__" not in data.files:
-            raise ValueError(
-                f"{path} is a pre-v2 genome index artifact; rebuild it "
-                "(delete the cache file) — the v2 packed format replaced it"
-            )
+        """The index that ``save`` wrote to the directory ``path``, every
+        array mapped read-only: nothing is read whole, copied or touched
+        before a query needs it. A ``.npz`` of the v2 format that earlier
+        versions wrote is read whole."""
+        if Path(path).is_dir():
+            return cls._map(Path(path))
+        return cls._read_npz(path)
+
+    @classmethod
+    def _map(cls, path: Path) -> "GenomeIndex":
+        meta = json.loads((path / _META).read_text())
+        if meta.get("format") != INDEX_FORMAT:
+            raise ValueError(f"{path} holds genome index format {meta.get('format')}, "
+                             f"not {INDEX_FORMAT}; delete it to rebuild")
+
+        def arr(name: str) -> np.ndarray:
+            # a str, not a Path: np.memmap resolves a Path, an lstat a
+            # component of it
+            return np.load(str(path / f"{name}.npy"), mmap_mode="r")
+
         self = cls.__new__(cls)
-        self.k = int(data["__k__"][0])
-        self.step = int(data["__step__"][0])
-        self.max_hits_per_seed = int(data["__cap__"][0])
-        self._chrom_names = [str(n) for n in data["__names__"]]
-        self._chrom_off = data["__chrom_off__"]
-        if "__bucket_nz__" in data.files:
-            counts = np.zeros(int(data["__nb__"][0]), dtype=np.int64)
-            counts[data["__bucket_nz__"].astype(np.int64)] = data["__bucket_nz_counts__"]
+        self.k, self.step, self.max_hits_per_seed = meta["k"], meta["step"], meta["cap"]
+        chroms = meta["chroms"]
+        self._chrom_names = [c[0] for c in chroms]
+        self._chrom_off = np.concatenate(
+            [[0], np.cumsum(np.asarray([c[1] for c in chroms], dtype=np.int64))])
+        self._positions = arr("positions")
+        if meta["sparse"]:
+            counts = np.zeros(1 << (2 * self.k), dtype=np.int64)
+            counts[arr("bucket_nz")] = arr("bucket_nz_counts")
+            self._offsets = _offsets_of(counts)
         else:
-            counts = data["__bucket_counts__"].astype(np.int64)
-        self._offsets = np.empty(len(counts) + 1, dtype=np.int64)
-        self._offsets[0] = 0
-        np.cumsum(counts, out=self._offsets[1:])
-        self._positions = data["__positions__"]
+            self._offsets = arr("offsets")
+        packed, nstarts, nends = arr("packed"), arr("nstarts"), arr("nends")
         self._packed = {}
-        for c in self._chrom_names:
-            self._packed[c] = PackedChrom(
-                data[f"{c}::packed"], int(data[f"{c}::len"][0]),
-                data[f"{c}::nstarts"], data[f"{c}::nends"],
-            )
+        w = r = 0
+        for c, n, words, runs in chroms:
+            self._packed[c] = PackedChrom(packed[w:w + words], n,
+                                          nstarts[r:r + runs], nends[r:r + runs])
+            w, r = w + words, r + runs
+        return self
+
+    @classmethod
+    def _read_npz(cls, path) -> "GenomeIndex":
+        with np.load(path) as data:
+            if "__v2__" not in data.files:
+                raise ValueError(
+                    f"{path} is a pre-v2 genome index artifact; rebuild it "
+                    "(delete the cache file) — the v2 packed format replaced it"
+                )
+            self = cls.__new__(cls)
+            self.k = int(data["__k__"][0])
+            self.step = int(data["__step__"][0])
+            self.max_hits_per_seed = int(data["__cap__"][0])
+            self._chrom_names = [str(n) for n in data["__names__"]]
+            self._chrom_off = data["__chrom_off__"]
+            if "__bucket_nz__" in data.files:
+                counts = np.zeros(int(data["__nb__"][0]), dtype=np.int64)
+                counts[data["__bucket_nz__"].astype(np.int64)] = data["__bucket_nz_counts__"]
+            else:
+                counts = data["__bucket_counts__"].astype(np.int64)
+            self._offsets = _offsets_of(counts)
+            self._positions = data["__positions__"]
+            self._packed = {}
+            for c in self._chrom_names:
+                self._packed[c] = PackedChrom(
+                    data[f"{c}::packed"], int(data[f"{c}::len"][0]),
+                    data[f"{c}::nstarts"], data[f"{c}::nends"],
+                )
         return self

@@ -33,7 +33,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from breakmer_tpu_torch._build import DEVICE_FAULTS
-from breakmer_tpu_torch.align.index import GenomeIndex
+from breakmer_tpu_torch.align.index import GenomeIndex, is_saved
 from breakmer_tpu_torch.align.realign import RegionRef
 from breakmer_tpu_torch.call.events import SVEvent
 from breakmer_tpu_torch.config import Config
@@ -131,22 +131,24 @@ class Runner:
     def _load_genome_index(self) -> None:
         cfg = self.cfg
         if cfg.build_genome_index:
-            # gfServer replacement: in-memory whole-genome seed index,
-            # cached as a packed artifact under reference_data_dir (the
-            # formalized .2bit equivalent; SURVEY.md §5)
+            # gfServer replacement: a whole-genome seed index, cached as a
+            # directory of arrays under reference_data_dir (the formalized
+            # .2bit equivalent; SURVEY.md §5) that each sample maps
             t0 = time.time()
-            cache = None
+            cache = legacy = None
             if cfg.reference_data_dir:
-                Path(cfg.reference_data_dir).mkdir(parents=True, exist_ok=True)
-                stem = Path(cfg.reference_fasta).stem
-                cache = (
-                    Path(cfg.reference_data_dir)
-                    / f"{stem}_genome_index_v2_k{cfg.seed_kmer_size}.npz"
-                )
-            if cache is not None and cache.exists():
-                self.genome = GenomeIndex.load(cache)
-                log.info("genome index loaded from %s in %.1fs", cache,
-                         time.time() - t0)
+                ref_dir = Path(cfg.reference_data_dir)
+                ref_dir.mkdir(parents=True, exist_ok=True)
+                stem = f"{Path(cfg.reference_fasta).stem}_genome_index"
+                cache = ref_dir / f"{stem}_v3_k{cfg.seed_kmer_size}"
+                legacy = ref_dir / f"{stem}_v2_k{cfg.seed_kmer_size}.npz"
+            if cache is not None and is_saved(cache):
+                source = "mapped"
+            elif legacy is not None and legacy.exists():
+                # an earlier version's cache: converted once; the .npz stays
+                # for the checkouts that still read it
+                GenomeIndex.load(legacy).save(cache)
+                source = "converted"
             else:
                 # generator, not to_dict(): only one chromosome's unpacked
                 # sequence is alive at a time during the build (the index
@@ -158,7 +160,11 @@ class Runner:
                 )
                 if cache is not None:
                     self.genome.save(cache)
-                log.info("genome index built in %.1fs", time.time() - t0)
+                source = "built"
+            if source != "built":
+                self.genome = GenomeIndex.load(cache)
+            METER.index = {"source": source, "bytes": int(self.genome.nbytes)}
+            log.info("genome index %s (%s) in %.1fs", source, cache, time.time() - t0)
         if self.genome is not None and cfg.shard_genome_index:
             from breakmer_tpu_torch.device import local_devices
 

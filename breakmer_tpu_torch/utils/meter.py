@@ -37,6 +37,9 @@ class Meter:
         self.sw_cells = 0
         self.sw_s = 0.0
         self.sw_launches = 0
+        # how the sample's set-up got its genome index: {"source": "mapped"
+        # | "converted" | "built", "bytes": the index's arrays}
+        self.index = None
 
     @contextmanager
     def stage(self, name: str):
@@ -75,6 +78,8 @@ class Meter:
                     round(self.sw_cells / self.sw_s / 1e9, 6) if self.sw_s > 0 else 0.0
                 ),
             }
+        if self.index is not None:
+            out["index"] = dict(self.index)
         return out
 
 

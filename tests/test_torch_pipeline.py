@@ -2,8 +2,9 @@
 through breakmer_tpu_torch on the CPU. svs.out, the VCF and each region's
 ledger rows / VCF records must be byte-identical (tolerance 0). One case
 hands the port the reference-data caches the JAX run wrote (region codes
-.npy, genome seed index .npz): it must load them, rebuild nothing, and
-give the same output."""
+.npy, genome seed index .npz): it must load them, rebuild nothing (the
+.npz is converted once into the port's mapped index), and give the same
+output."""
 
 import argparse
 import json
@@ -85,7 +86,13 @@ def test_port_reuses_jax_reference_caches(tmp_path, monkeypatch):
     monkeypatch.setattr(trunner, "GenomeIndex", NoBuildIndex)
     _, got = _run(TorchRunner, cfg_kwargs, tmp_path / "torch", prepare=prepare)
     _assert_identical(ref, got)
-    assert {p.name: p.stat().st_mtime_ns for p in refdata.iterdir()} == before
+    # the .npz is converted once into the port's mapped index beside it;
+    # every artifact the JAX run wrote stays as it was
+    after = {p.name: p.stat().st_mtime_ns for p in refdata.iterdir()}
+    assert {n: after[n] for n in before} == before
+    assert sorted(set(after) - set(before)) == ["genome_genome_index_v3_k11"]
+    metrics = json.loads((tmp_path / "torch" / "metrics.json").read_text())
+    assert metrics["index"]["source"] == "converted"
 
 
 def _run_actions(parser):
