@@ -393,14 +393,15 @@ def kmer_table(
 ) -> np.ndarray:
     """Sorted k-mer membership table (host numpy uint32) over a read batch
     or a single sequence row; with ``add_rc`` the table is orientation-
-    proof (contains every k-mer's reverse complement too)."""
+    proof (contains every k-mer's reverse complement too). The codes,
+    their reverse complements and the sort run on ``device``; the sorted
+    table comes back in one copy."""
     km, _ = kmer_codes(_to_dev(codes, np.int8, device),
                        _to_dev(lengths, np.int32, device), k)
-    v = _to_u32(km).reshape(-1)
-    v = v[v != SENTINEL]
+    v = km[km != _SENT]
     if add_rc:
-        v = np.concatenate([v, _revcomp_codes_vec(v, k)])
-    return np.sort(v)
+        v = both_strands(v, k)
+    return _to_u32(torch.sort(v).values)
 
 
 def _member_host(values: np.ndarray, table: np.ndarray) -> np.ndarray:
@@ -430,19 +431,6 @@ def novel_kmer_normal_support(
     if len(novel) == 0:
         return 0, 0
     return len(novel), int(np.sum(_member_host(novel, normal_table)))
-
-
-def _revcomp_codes_vec(codes_u32: np.ndarray, k: int) -> np.ndarray:
-    """Reverse-complement packed k-mer codes (vectorized, host)."""
-    codes = codes_u32.astype(np.uint64)
-    out = np.zeros_like(codes)
-    for _ in range(k):
-        out = (out << np.uint64(2)) | (np.uint64(3) - (codes & np.uint64(3)))
-        codes >>= np.uint64(2)
-    sent = codes_u32 == np.uint32(0xFFFFFFFF)
-    out = out.astype(np.uint32)
-    out[sent] = np.uint32(0xFFFFFFFF)
-    return out
 
 
 def kmer_to_str(code: int, k: int) -> str:

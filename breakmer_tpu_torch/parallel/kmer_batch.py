@@ -20,9 +20,13 @@ Against the JAX module:
     ``np.int32``).
   - torch's scatter has no ``mode="drop"``: ``_compact_outputs`` sends
     every entry it drops to a spare slot past the buffer and cuts it off.
-  - Inputs go to a card from pinned host buffers with non-blocking
-    copies, so the host packs the next batch while the card works; one
-    device-to-host copy fetches every pending packed output.
+  - Inputs go to a card straight from the batch's own host arrays, which
+    stay alive until the fetch anyway; a pinned copy would hold every
+    pending batch a second time, in torch's pinned pool, which rounds
+    each buffer up to a power of two, so that the process's peak memory
+    jumps with the sample's read counts. The kernels still run while the
+    host packs the next batch; one device-to-host copy fetches every
+    pending packed output.
 """
 
 from __future__ import annotations
@@ -108,29 +112,18 @@ def _step_args(b: RegionBatch) -> tuple:
     return base
 
 
-def _upload(arrays, device: torch.device) -> Tuple[tuple, tuple]:
-    """Host arrays -> tensors on ``device``, and the host buffers the
-    copies read. To a card the copies are non-blocking from pinned
-    buffers, which must stay alive until the copies complete."""
-    host = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
-    if device.type == "cpu":
-        return host, ()
-    pinned = tuple(h.pin_memory() for h in host)
-    return tuple(p.to(device, non_blocking=True) for p in pinned), pinned
+def _upload(arrays, device: torch.device) -> tuple:
+    """Host arrays -> tensors on ``device``."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
 
 
-def _upload_sharded(arrays, mesh) -> Tuple[tuple, tuple]:
+def _upload_sharded(arrays, mesh) -> tuple:
     """Host arrays -> one tuple of tensors a regions block, each on the
-    first device of its mesh row, and the pinned buffers of every block
-    (kept alive until the copies complete). G must split evenly over the
-    regions axis."""
+    first device of its mesh row. G must split evenly over the regions
+    axis."""
     rows = mesh.devices.shape[0]
-    blocks, pinned = [], []
-    for i, gs in enumerate(split_evenly(arrays[0].shape[0], rows, "G (regions)")):
-        args, p = _upload([a[gs] for a in arrays], mesh.devices[i, 0])
-        blocks.append(args)
-        pinned.append(p)
-    return tuple(blocks), tuple(pinned)
+    return tuple(_upload([a[gs] for a in arrays], mesh.devices[i, 0])
+                 for i, gs in enumerate(split_evenly(arrays[0].shape[0], rows, "G (regions)")))
 
 
 def _fetch_packed(outs) -> List[Tuple[np.ndarray, np.ndarray, int]]:
@@ -230,11 +223,11 @@ class KmerBatchPipeline:
     def _launch(self, b: RegionBatch) -> None:
         cap = b.reads.shape[0] * _PACK_SLOTS_PER_REGION
         if self.mesh is None:
-            args, pinned = _upload(_step_args(b), self.device)
+            args = _upload(_step_args(b), self.device)
         else:
-            args, pinned = _upload_sharded(_step_args(b), self.mesh)
+            args = _upload_sharded(_step_args(b), self.mesh)
         out = _kmer_step_packed(self.k, self.min_count, cap, self.mesh)(*args)
-        self._pending.append((b, out, args, pinned))
+        self._pending.append((b, out, args))
         self.dispatched += 1
 
     def results(self):
@@ -250,8 +243,8 @@ class KmerBatchPipeline:
         if not pending:
             return
         with METER.stage("kmer_device"):
-            fetched = _fetch_packed([out for _, out, _a, _p in pending])
-        for (b, _, args, _p), (vals, gcs, n) in zip(pending, fetched):
+            fetched = _fetch_packed([out for _, out, _a in pending])
+        for (b, _, args), (vals, gcs, n) in zip(pending, fetched):
             if n < 0:  # packed overflow: full-shape refetch
                 with METER.stage("kmer_device"):
                     values, counts = _fetch_full(

@@ -11,6 +11,7 @@ work and batched SW scoring.
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from typing import Iterable, List, Optional
 
 import numpy as np
@@ -285,18 +286,22 @@ class TargetPipeline:
             return self.global_coverage_at(chrom, pos)
         return 0
 
-    def _germline_event_reason(self, ev: SVEvent, tables) -> Optional[str]:
-        """Junction-windowed germline recheck vs the matched normal: the
-        raw-read k-mer subtraction is defeated when two sample reads share
-        one sequencing error (see Config.germline_kmer_min rationale), but
-        the assembled CONSENSUS is the clean germline sequence — so test
-        whether the novel k-mers SPANNING THIS EVENT'S JUNCTION are carried
-        by the normal. Windowing to the junction (deeply covered contig
-        interior) keeps tail consensus errors and unrelated germline SNPs
-        elsewhere in the contig from diluting the signal."""
+    def _germline_kmer_test(self, ev: SVEvent, tables):
+        """The recheck's k-mer test on the junction window: the raw-read
+        k-mer subtraction is defeated when two sample reads share one
+        sequencing error (see Config.germline_kmer_min rationale), but the
+        assembled CONSENSUS is the clean germline sequence — so test whether
+        the novel k-mers SPANNING THIS EVENT'S JUNCTION are carried by the
+        normal. Windowing to the junction (deeply covered contig interior)
+        keeps tail consensus errors and unrelated germline SNPs elsewhere in
+        the contig from diluting the signal.
+
+        Returns (reason, None) where the k-mers call the event germline,
+        (None, None) where they call it somatic, and (None, (n_in, n_novel))
+        where they are inconclusive: some novel k-mers are in the normal."""
         cfg = self.cfg
         if not ev.junction_q:
-            return None
+            return None, None
         from breakmer_tpu_torch.encode import encode_seq
         from breakmer_tpu_torch.ops.kmer import novel_kmer_normal_support
 
@@ -307,7 +312,7 @@ class TargetPipeline:
         hi = min(len(ev.contig_seq), max(ev.junction_q) + pad)
         window = ev.contig_seq[lo:hi]
         if len(window) < k:
-            return None
+            return None, None
         n_novel, n_in = novel_kmer_normal_support(
             encode_seq(window), ref_table, normal_table, k, device=self.device
         )
@@ -316,44 +321,54 @@ class TargetPipeline:
             and n_novel > 0
             and n_in / n_novel >= cfg.germline_kmer_frac
         ):
-            return f"germline_kmer_support:{n_in}/{n_novel}"
+            return f"germline_kmer_support:{n_in}/{n_novel}", None
         if n_in == 0:
-            return None  # no normal evidence at all: clearly somatic
-        # Inconclusive k-mer evidence: when the leaked contig was assembled
-        # from only the error-sharing reads, ITS consensus carries their
-        # other errors and exact k-mer membership under-counts. Confirm
-        # edit-tolerantly: a normal read aligning (near) the FULL junction
-        # window at high identity proves the normal carries the junction
-        # adjacency (germline); somatic junctions align only one flank.
-        return self._germline_sw_confirm(window, n_in, n_novel)
+            return None, None  # no normal evidence at all: clearly somatic
+        return None, (n_in, n_novel)
 
-    def _germline_sw_confirm(
-        self, window: str, n_in: int, n_novel: int
-    ) -> Optional[str]:
-        from breakmer_tpu_torch.align.traceback import traceback_align
-        from breakmer_tpu_torch.encode import encode_seq, revcomp_codes
+    def _germline_recheck(self, events: List[SVEvent]) -> List[SVEvent]:
+        """The events that the matched normal does not carry. An event is
+        germline where the k-mer test says so or, where that test is
+        inconclusive (the leaked contig's consensus carries the
+        error-sharing reads' other errors, so exact k-mer membership
+        under-counts), where a normal read carries its junction itself
+        (``call/germline.py``). The alignments of all of the region's
+        inconclusive events are made together. Counts go to METER.germline."""
+        from breakmer_tpu_torch.call.germline import find_carriers, junction_query
 
         cfg = self.cfg
-        normal = self.normal_batch
-        w = encode_seq(window)
-        need_span = len(w) - cfg.germline_sw_slack
-        for q in (w, revcomp_codes(w)):
-            for i in range(len(normal)):
-                aln = traceback_align(q, normal.codes[i][: normal.lengths[i]],
-                                      self.sw_params())
-                span = aln.q_end - aln.q_start
-                if span < need_span:
-                    continue
-                ident = (
-                    aln.matches / (aln.matches + aln.mismatches)
-                    if aln.matches + aln.mismatches else 0.0
-                )
-                if ident >= cfg.germline_sw_identity:
-                    return (
-                        f"germline_normal_align:{ident:.3f}@{span}"
+        tables = self._germline_tables() if events else None
+        if tables is None:
+            return events
+        counts = Counter(events=len(events))
+        unsure = []
+        for ev in events:
+            reason, kmers = self._germline_kmer_test(ev, tables)
+            if reason is not None:
+                ev.filter_reason = reason
+                counts["germline_by_kmers"] += 1
+                continue
+            junction = kmers and junction_query(ev.contig_seq, ev.junction_q, cfg.kmer_size)
+            if junction:
+                unsure.append((ev, kmers, junction))
+            else:
+                counts["somatic_by_kmers"] += 1
+        counts["kmers_inconclusive"] += len(unsure)
+        if unsure:
+            found = find_carriers([j for _, _, j in unsure], self.normal_batch, self.sw_params(),
+                                  cfg.kmer_size, cfg.germline_sw_identity, device=self.device,
+                                  counts=counts)
+            for (ev, (n_in, n_novel), _), hit in zip(unsure, found):
+                if hit is not None:
+                    ev.filter_reason = (
+                        f"germline_normal_junction:{hit.identity:.3f}@{hit.left}+{hit.right}"
                         f"(kmers {n_in}/{n_novel})"
                     )
-        return None
+                    counts["germline_by_alignment"] += 1
+        kept = [ev for ev in events if ev.filter_reason is None]
+        counts["kept"] += len(kept)
+        METER.add_germline(counts)
+        return kept
 
     def _germline_tables(self):
         cfg = self.cfg
@@ -397,17 +412,12 @@ class TargetPipeline:
                 result.all_events, cfg, rmask=self.rmask, target=self.target,
                 user_filter=self.user_filter,
             )
-            tables = self._germline_tables() if result.events else None
-            if tables is not None:
-                kept = []
-                for ev in result.events:
-                    reason = self._germline_event_reason(ev, tables)
-                    if reason is not None:
-                        ev.filter_reason = reason
-                    else:
-                        kept.append(ev)
-                result.events = kept
-            if cfg.dedup_identical_events:
+        if self.normal_batch is not None or cfg.normal_bam_file:
+            # a span of its own after classify's, so that no two overlap
+            with METER.stage("germline"):
+                result.events = self._germline_recheck(result.events)
+        if cfg.dedup_identical_events:
+            with METER.stage("classify"):
                 result.events = _dedup_identical(result.events)
         return result
 

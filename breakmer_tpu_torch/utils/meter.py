@@ -19,9 +19,15 @@ profiler's timeline as a ``breakmer.<name>`` range (``profile``).
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+
+
+# METER.germline's counters, in the order metrics.json lists them
+GERMLINE_COUNTS = ("events", "germline_by_kmers", "somatic_by_kmers", "kmers_inconclusive",
+                   "candidates", "alignments", "germline_by_alignment", "kept")
 
 
 class Meter:
@@ -29,6 +35,7 @@ class Meter:
         # set by cli.run_profiled alone: a range that encloses launches is
         # mirrored on the device timeline, which an idle count reads as busy
         self.profile = False
+        self._lock = threading.Lock()  # add_germline runs on the runner's worker threads
         self.reset()
 
     def reset(self) -> None:
@@ -40,6 +47,11 @@ class Meter:
         # how the sample's set-up got its genome index: {"source": "mapped"
         # | "converted" | "built", "bytes": the index's arrays}
         self.index = None
+        # the germline recheck against a matched normal (pipeline.py): events
+        # rechecked, the k-mer test's verdicts, candidate normal reads (pairs
+        # of an event and a read's strand), alignments traced back, germline
+        # by alignment and events kept
+        self.germline: dict = defaultdict(int)
 
     @contextmanager
     def stage(self, name: str):
@@ -55,6 +67,11 @@ class Meter:
             if span is not None:
                 span.__exit__(None, None, None)
             self.stage_s[name] += time.perf_counter() - t0
+
+    def add_germline(self, counts: dict) -> None:
+        with self._lock:
+            for key, n in counts.items():
+                self.germline[key] += n
 
     def add_sw(self, cells: int, secs: float) -> None:
         self.sw_cells += int(cells)
@@ -80,6 +97,8 @@ class Meter:
             }
         if self.index is not None:
             out["index"] = dict(self.index)
+        if self.germline:
+            out["germline"] = {k: self.germline[k] for k in GERMLINE_COUNTS}
         return out
 
 

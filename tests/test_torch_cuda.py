@@ -1454,3 +1454,34 @@ def test_run_at_ungapped_penalties_on_card_matches_cpu(card, batched, tmp_path):
                        {n: (e["rows"], e["vcf"], e["error"]) for n, e in ledger.items()})
         assert (sw_cuda.LAUNCHES > before) == (device == "cuda")
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_germline_recheck_on_card_matches_cpu(card):
+    """The germline recheck's candidate pass (K1 and a search of the seeds
+    on the card), its one SW call a region and its verdicts, on the card
+    against the CPU path: each case of the CPU tests alone, then every
+    case of a seed as one region."""
+    from breakmer_tpu_torch.call import germline
+    from tests.test_torch_germline_recheck import CASES, IDENTITY, K, PARAMS, _batch, make_case
+
+    def both(junctions, normal):
+        got = []
+        for device in ("cpu", card):
+            counts = {}
+            got.append((germline.find_carriers(junctions, normal, PARAMS, K, IDENTITY, device=device,
+                                               counts=counts), counts))
+        return got
+
+    from breakmer_tpu_torch.ops import kmer_cuda
+
+    sw_before, k1_before = sw_cuda.LAUNCHES, kmer_cuda.LAUNCHES["kmer_codes"]
+    for seed in (1, 2):
+        cases = [make_case(*c) for c in CASES if c[0] == seed]
+        for contig, junction_q, reads, _ in cases:
+            cpu, gpu = both([germline.junction_query(contig, junction_q, K)], _batch(reads))
+            assert gpu == cpu
+        region = [germline.junction_query(c, jq, K) for c, jq, _, _ in cases]
+        cpu, gpu = both(region, _batch([r for _, _, rs, _ in cases for r in rs]))
+        assert gpu == cpu and any(h is not None for h in gpu[0]) and gpu[1]["alignments"] > 0
+    assert sw_cuda.LAUNCHES > sw_before and kmer_cuda.LAUNCHES["kmer_codes"] > k1_before

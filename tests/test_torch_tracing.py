@@ -1,7 +1,7 @@
 """The port's METER spans cover a sample's wall on the serial path: set-up,
 the index load, each region's reference, the normal's reads and ledger,
-and the output, beside the six stages of the regions' work, with no span
-open inside another. ``cli run --profile`` puts every stage on the
+and the output, beside the six stages of the regions' work and, with a
+normal, the germline recheck, with no span open inside another. ``cli run --profile`` puts every stage on the
 profiler's timeline as a ``breakmer.<stage>`` range; outside it the meter
 opens no profiler range."""
 
@@ -15,6 +15,7 @@ import pytest
 from breakmer_tpu_torch import vcf
 from breakmer_tpu_torch.align.index import GenomeIndex
 from breakmer_tpu_torch.config import Config
+from breakmer_tpu_torch.pipeline import TargetPipeline
 from breakmer_tpu_torch.runner import Runner
 from breakmer_tpu_torch.testing.scenarios import build_scenario
 from breakmer_tpu_torch.utils.meter import METER
@@ -23,11 +24,11 @@ RUNNER_SPANS = {"setup", "index_load", "region_ref", "ledger", "finalize"}
 REGION_STAGES = {"bam_decode", "extract_clean", "kmer_device", "assemble", "realign", "classify"}
 
 
-def _config(tmp_path, normal, **extra):
+def _config(tmp_path, normal, batched=False, **extra):
     (tmp_path / "in").mkdir()
     cfg_kwargs, _ = build_scenario(1, tmp_path / "in", n_genes=3, kinds=["ins", "del", "inv"],
                                    with_normal_germline=normal)
-    cfg_kwargs.update(batch_regions=False, device="cpu", log_level="WARNING",
+    cfg_kwargs.update(batch_regions=batched, device="cpu", log_level="WARNING",
                       analysis_dir=str(tmp_path / "out"), **extra)
     return cfg_kwargs
 
@@ -85,14 +86,24 @@ def _no_collection():
 
 @pytest.mark.parametrize("normal", [False, True], ids=["tumour", "tumour_normal"])
 def test_serial_spans_reach_metrics_and_never_overlap(tmp_path, monkeypatch, normal):
-    cfg_kwargs = _config(tmp_path, normal)
+    _spans_reach_metrics_and_never_overlap(tmp_path, monkeypatch, normal, False)
+
+
+def test_batched_spans_with_a_normal_reach_metrics_and_never_overlap(tmp_path, monkeypatch):
+    """The batched path opens the six region stages too, and the recheck's."""
+    stage_s = _spans_reach_metrics_and_never_overlap(tmp_path, monkeypatch, True, True)
+    assert REGION_STAGES - {"bam_decode"} <= set(stage_s)
+
+
+def _spans_reach_metrics_and_never_overlap(tmp_path, monkeypatch, normal, batched):
+    cfg_kwargs = _config(tmp_path, normal, batched)
     spans = _Spans(monkeypatch)
     with _no_collection():
         Runner(Config(**cfg_kwargs)).run()
     stage_s = _metrics(cfg_kwargs)["stage_s"]
-    want = RUNNER_SPANS | ({"normal_reads"} if normal else set())
+    want = RUNNER_SPANS | ({"normal_reads", "germline"} if normal else set())
     assert want <= set(stage_s)
-    assert ("normal_reads" in stage_s) == normal
+    assert ("normal_reads" in stage_s) == ("germline" in stage_s) == normal
     assert set(stage_s) <= want | REGION_STAGES
     assert {n for n, _, _ in spans.log} == set(stage_s)
     ordered = sorted(spans.log, key=lambda s: s[1])
@@ -101,6 +112,7 @@ def test_serial_spans_reach_metrics_and_never_overlap(tmp_path, monkeypatch, nor
     for name, secs in stage_s.items():
         logged = sum(t1 - t0 for n, t0, t1 in spans.log if n == name)
         assert abs(logged - secs) <= 1e-3 + 0.05 * secs, name
+    return stage_s
 
 
 @pytest.mark.parametrize("normal", [False, True], ids=["tumour", "tumour_normal"])
@@ -116,6 +128,7 @@ def test_each_runner_call_runs_inside_its_own_span(tmp_path, monkeypatch, normal
     }
     if normal:
         checks["normal_reads"] = spans.probe(monkeypatch, Runner, "_normal_batch", "normal_reads")
+        checks["germline"] = spans.probe(monkeypatch, TargetPipeline, "_germline_recheck", "germline")
     Runner(Config(**cfg_kwargs)).run()
     assert {name: ok() for name, ok in checks.items()} == {name: True for name in checks}
 
@@ -155,7 +168,7 @@ def test_cli_profile_labels_every_stage_on_the_trace(tmp_path):
         if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e["name"].startswith("breakmer."):
             name = e["name"][len("breakmer."):]
             ranges[name] = ranges.get(name, 0.0) + e["dur"] / 1e6
-    assert set(ranges) == set(stage_s) and RUNNER_SPANS | {"normal_reads"} <= set(ranges)
+    assert set(ranges) == set(stage_s) and RUNNER_SPANS | {"normal_reads", "germline"} <= set(ranges)
     for name, secs in stage_s.items():
         assert abs(ranges[name] - secs) <= max(0.05 * secs, 0.002), (name, ranges[name], secs)
 
