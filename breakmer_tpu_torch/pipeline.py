@@ -297,8 +297,10 @@ class TargetPipeline:
         the contig from diluting the signal.
 
         Returns (reason, None) where the k-mers call the event germline,
-        (None, None) where they call it somatic, and (None, (n_in, n_novel))
-        where they are inconclusive: some novel k-mers are in the normal."""
+        (None, None) where they cannot test it (no junction window, or no
+        novel k-mer in it), and (None, (n_in, n_novel)) where they are
+        inconclusive. None in the normal is inconclusive too: one consensus
+        error at the junction's centre is in every k-mer of the window."""
         cfg = self.cfg
         if not ev.junction_q:
             return None, None
@@ -322,8 +324,8 @@ class TargetPipeline:
             and n_in / n_novel >= cfg.germline_kmer_frac
         ):
             return f"germline_kmer_support:{n_in}/{n_novel}", None
-        if n_in == 0:
-            return None, None  # no normal evidence at all: clearly somatic
+        if n_novel == 0:
+            return None, None  # the window is the reference's: nothing to ask the normal
         return None, (n_in, n_novel)
 
     def _germline_recheck(self, events: List[SVEvent]) -> List[SVEvent]:

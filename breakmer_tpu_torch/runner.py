@@ -63,6 +63,8 @@ class Runner:
         self._sample_records: Optional[list] = None
         self._record_bins = None  # per-chrom (idx, pos, end) interval arrays
         self._indexed_reader = None  # cached BamIndexedReader (indexed path)
+        # the normal's BamColumnReader; False where its reads come record by record
+        self._normal_reader = None
         self._native_cols = None   # (cols, ref_names) for .bam native path
         self._native_cov_bins = None  # per-refid (pos_sorted, end) arrays
         self._preload_resolved: Optional[bool] = None  # _preload_effective()
@@ -597,16 +599,50 @@ class Runner:
 
     # -- normal reads for kmer subtraction ---------------------------------
     def _normal_batch(self, target: TargetRegion) -> Optional[ReadBatch]:
+        """The normal's reads over a region, in file order, quals dropped.
+        An indexed BAM with the native library gives them as columns
+        (``BamColumnReader.fetch_columns``); SAM text, an unindexed BAM or
+        no native library, record by record. Both give the same batch."""
         cfg = self.cfg
         if not cfg.normal_bam_file:
             return None
         chrom, start, end = target.span(cfg.region_buffer)
+        reader = self._normal_columns_reader()
+        cols = reader.fetch_columns(chrom, start, end) if reader else None
+        if cols is not None:
+            from breakmer_tpu_torch.io.bam_columns import column_qnames
+
+            rows = np.flatnonzero(cols["lseq"] > 0) if cols["n"] else []
+            METER.add_normal_reads({"regions_columnar": 1, "records_decoded": cols["decoded"],
+                                    "reads_kept": len(rows)})
+            if not len(rows):
+                return None
+            lengths = cols["lseq"][rows]
+            return ReadBatch(
+                codes=cols["seq_codes"][rows, : int(lengths.max())],  # a copy
+                lengths=lengths, names=column_qnames(cols["names"][rows]),
+            )
         seqs, names = [], []
         for rec in read_alignments(cfg.normal_bam_file, region=(chrom, start, end)):
             if rec.seq and rec.seq != "*":
                 seqs.append(rec.seq)
                 names.append(rec.qname)
+        METER.add_normal_reads({"regions_records": 1, "reads_kept": len(seqs)})
         return ReadBatch.from_seqs(seqs, names=names) if seqs else None
+
+    def _normal_columns_reader(self):
+        """The normal's cached ``BamColumnReader`` (its index and header
+        parsed once a sample), or None where it is not an indexed BAM or the
+        native library is missing."""
+        if self._normal_reader is None:
+            from breakmer_tpu_torch import native
+            from breakmer_tpu_torch.io.bam import find_index
+            from breakmer_tpu_torch.io.bam_columns import BamColumnReader
+
+            path = str(self.cfg.normal_bam_file)
+            columnar = path.endswith(".bam") and find_index(path) is not None and native.available()
+            self._normal_reader = BamColumnReader(path) if columnar else False
+        return self._normal_reader or None
 
     def _region_inputs(self, target: TargetRegion):
         """A region's reference and its normal's reads, each in its METER
@@ -631,6 +667,9 @@ class Runner:
                 return self._run_batched(resume)
             return self._run_serial(resume)
         finally:
+            if self._normal_reader:
+                self._normal_reader.close()
+            self._normal_reader = None
             if cfg.multihost:
                 from breakmer_tpu_torch.parallel.multihost import shutdown_distributed
 

@@ -28,6 +28,10 @@ from contextlib import contextmanager
 # METER.germline's counters, in the order metrics.json lists them
 GERMLINE_COUNTS = ("events", "germline_by_kmers", "somatic_by_kmers", "kmers_inconclusive",
                    "candidates", "alignments", "germline_by_alignment", "kept")
+# METER.normal_reads's counters: regions whose normal reads came as columns
+# through the normal's index or record by record, the records the columnar
+# fetch decoded (before its overlap rule) and the reads the batches kept
+NORMAL_READS_COUNTS = ("regions_columnar", "regions_records", "records_decoded", "reads_kept")
 
 
 class Meter:
@@ -35,7 +39,7 @@ class Meter:
         # set by cli.run_profiled alone: a range that encloses launches is
         # mirrored on the device timeline, which an idle count reads as busy
         self.profile = False
-        self._lock = threading.Lock()  # add_germline runs on the runner's worker threads
+        self._lock = threading.Lock()  # counters may be added from the runner's worker threads
         self.reset()
 
     def reset(self) -> None:
@@ -52,6 +56,7 @@ class Meter:
         # of an event and a read's strand), alignments traced back, germline
         # by alignment and events kept
         self.germline: dict = defaultdict(int)
+        self.normal_reads: dict = defaultdict(int)
 
     @contextmanager
     def stage(self, name: str):
@@ -69,9 +74,15 @@ class Meter:
             self.stage_s[name] += time.perf_counter() - t0
 
     def add_germline(self, counts: dict) -> None:
+        self._add(self.germline, counts)
+
+    def add_normal_reads(self, counts: dict) -> None:
+        self._add(self.normal_reads, counts)
+
+    def _add(self, table: dict, counts: dict) -> None:
         with self._lock:
             for key, n in counts.items():
-                self.germline[key] += n
+                table[key] += n
 
     def add_sw(self, cells: int, secs: float) -> None:
         self.sw_cells += int(cells)
@@ -99,6 +110,8 @@ class Meter:
             out["index"] = dict(self.index)
         if self.germline:
             out["germline"] = {k: self.germline[k] for k in GERMLINE_COUNTS}
+        if self.normal_reads:
+            out["normal_reads"] = {k: self.normal_reads[k] for k in NORMAL_READS_COUNTS}
         return out
 
 

@@ -120,6 +120,46 @@ def test_one_call_decides_every_junction_of_a_region():
     assert counts["candidates"] >= counts["alignments"] > 0
 
 
+
+@pytest.mark.parametrize("normal_carries", [True, False], ids=["germline", "somatic"])
+def test_a_junction_with_no_kmer_in_the_normal_is_asked_of_the_normal(normal_carries):
+    """A point junction whose contig carries one consensus error at its
+    centre: that base is in every k-mer of the k-mer test's window, so none
+    is in the normal. The event is germline where a normal read carries the
+    junction (a germline deletion), and kept where the normal holds the
+    reference only (the same deletion, somatic)."""
+    import types
+
+    import torch
+
+    from breakmer_tpu_torch.call.events import SVEvent
+    from breakmer_tpu_torch.config import Config
+    from breakmer_tpu_torch.io.bed import TargetRegion
+    from breakmer_tpu_torch.pipeline import TargetPipeline
+
+    rng = np.random.default_rng(23)
+    left, mid, right = (rng.integers(0, 4, n).astype(np.int8) for n in (300, 40, 300))
+    reference = np.concatenate([left, mid, right])
+    allele = np.concatenate([left, right]) if normal_carries else reference
+    starts = rng.integers(150, len(allele) - 150 - READ_LEN // 2, 80)
+    normal = _batch([allele[s:s + READ_LEN] for s in starts])
+    contig = np.concatenate([left[-60:], right[:60]])
+    contig[60] = (contig[60] + 1) % 4  # the first base right of the junction
+    ev = SVEvent(sv_type="indel", sv_subtype="D", genes="G", breakpoints=[("chr1", 300, 340)], strands="+",
+                 align_cigar="60M40D60M", total_matching=119, mismatches=1, size=40, split_read_count=10,
+                 disc_read_count=0, breakpoint_coverages=[10, 10], contig_id="G_contig1",
+                 contig_seq=decode_seq(contig), junction_q=[60, 60])
+    pipe = TargetPipeline(Config(), TargetRegion("G", "chr1", 0, len(reference), []),
+                          types.SimpleNamespace(codes=reference), normal_batch=normal, device=torch.device("cpu"))
+    tables = pipe._germline_tables()
+    reason, kmers = pipe._germline_kmer_test(ev, tables)
+    assert reason is None and kmers[0] == 0 and kmers[1] > 0
+    kept = pipe._germline_recheck([ev])
+    if normal_carries:
+        assert kept == [] and ev.filter_reason.startswith("germline_normal_junction")
+    else:
+        assert kept == [ev] and ev.filter_reason is None
+
 def _witness(tmp_path, with_normal):
     from breakmer_tpu_torch.config import Config
     from breakmer_tpu_torch.runner import Runner
