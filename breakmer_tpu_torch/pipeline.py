@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import Counter
-from typing import Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 
@@ -107,6 +107,10 @@ class TargetPipeline:
         normal_batch: Optional[ReadBatch] = None,
         *,
         device,
+        coverage_at=None,
+        user_filter: Optional[RepeatMask] = None,
+        all_reads=None,
+        disc_override=None,
     ):
         self.cfg = cfg
         self.device = device  # torch.device of the k-mer and SW stages
@@ -114,7 +118,7 @@ class TargetPipeline:
         self.region_ref = region_ref
         self.genome = genome
         self.rmask = rmask
-        self.user_filter = None  # RepeatMask-style interval set (filter_list)
+        self.user_filter = user_filter  # RepeatMask-style interval set (filter_list)
         self.normal_batch = normal_batch
         self.extract_result: Optional[ExtractResult] = None
         self.clean_batch: Optional[ReadBatch] = None
@@ -123,16 +127,16 @@ class TargetPipeline:
         # optional genome-wide depth callback (chrom, pos) -> int for
         # breakpoints outside the region (e.g. translocation partners);
         # the region's own coverage array takes precedence
-        self.global_coverage_at = None
-        # run-level discordant-pair map (cfg.global_disc_support): set by
-        # the runner; replaces the region-local map at classify time
-        self.disc_override = None
+        self.global_coverage_at = coverage_at
+        # run-level discordant-pair map (cfg.global_disc_support); replaces
+        # the region-local map at classify time
+        self.disc_override = disc_override
         # lazy provider of EVERY primary region read (ReadBatch) for the
-        # contig-extension pass (assemble/extend.py): set by the runner;
-        # fetched only when contigs were assembled and cfg.contig_extension
-        # is on, and dropped right after — the all-reads batch is never
-        # held across regions (bounded-ingest memory envelope)
-        self.all_reads_provider = None
+        # contig-extension pass (assemble/extend.py): called only when
+        # contigs were assembled and cfg.contig_extension is on, and dropped
+        # right after — the all-reads batch is never held across regions
+        # (bounded-ingest memory envelope)
+        self.all_reads_provider = all_reads
 
     # -- phase 1: find_sv_reads (reference: target.find_sv_reads) ----------
     def extract_and_clean(
@@ -142,8 +146,8 @@ class TargetPipeline:
     ) -> bool:
         """Extraction + cleaning only (the batched runner computes k-mers
         for many regions in one device launch; see parallel/kmer_batch).
-        ``extract_result`` injects a prebuilt extraction (the runner's
-        columnar native-BAM path)."""
+        ``extract_result`` injects a prebuilt extraction (the runner's,
+        from ``reads.py``)."""
         cfg = self.cfg
         with METER.stage("extract_clean"):
             if extract_result is not None:
@@ -445,8 +449,14 @@ class TargetPipeline:
         self,
         records: Optional[Iterable[SamRecord]] = None,
         extract_result: Optional[ExtractResult] = None,
+        extract: Optional[Callable[[], ExtractResult]] = None,
     ) -> RegionResult:
+        """The region from its reads to its calls. ``extract`` makes the
+        extraction (the runner's, from ``reads.py``) inside the region's
+        fault isolation."""
         try:
+            if extract is not None:
+                extract_result = extract()
             if not self.find_sv_reads(records, extract_result):
                 return RegionResult(
                     target=self.target,

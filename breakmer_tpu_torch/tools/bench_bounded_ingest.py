@@ -81,6 +81,7 @@ def _child(mode: str, work: Path, device: str) -> None:
     sampler = _RssSampler()
     sampler.start()
     from breakmer_tpu_torch.config import Config
+    from breakmer_tpu_torch.reads import ColumnReads, IndexedReads, NativeReads, PreloadedReads
     from breakmer_tpu_torch.runner import Runner
 
     bam = work / "deep.bam"
@@ -105,13 +106,12 @@ def _child(mode: str, work: Path, device: str) -> None:
     t0 = time.time()
     events = r.run()
     run_s = time.time() - t0
-    if mode == "indexed":
-        if r._preload_effective() is not False:
-            raise RuntimeError("the preload guard did not trip")
-        if r._sample_records is not None or r._native_cols is not None:
-            raise RuntimeError("the indexed run preloaded the BAM")
-    elif r._preload_effective() is not True:
-        raise RuntimeError("the preload run did not preload")
+    held = r.reads.resolved if isinstance(r.reads, NativeReads) else r.reads
+    if mode == "indexed" and not isinstance(held, IndexedReads):  # holds nothing of the file
+        raise RuntimeError(f"the preload guard did not trip: {type(held).__name__}")
+    if mode == "preload" and not (isinstance(held, ColumnReads)
+                                  or isinstance(held, PreloadedReads) and held._records):
+        raise RuntimeError(f"the preload run did not preload: {type(held).__name__}")
     print(json.dumps({
         "mode": mode,
         "calls": [[e.genes, e.sv_type, e.sv_subtype, e.breakpoints] for e in events],

@@ -20,6 +20,7 @@ from breakmer_tpu_torch.io.bam import BamIndexedReader, _bgzf_read_block, write_
 from breakmer_tpu_torch.io.bam_columns import BamColumnReader, column_qnames
 from breakmer_tpu_torch.io.bed import TargetRegion
 from breakmer_tpu_torch.io.sam import SamRecord, parse_sam_line
+from breakmer_tpu_torch.reads import NormalReads
 from breakmer_tpu_torch.runner import Runner
 from breakmer_tpu_torch.utils.meter import METER
 
@@ -161,7 +162,7 @@ def test_normal_batch_from_columns_equals_the_record_path(indexed_bam, region):
     got = _runner(indexed_bam)._normal_batch(target)
     assert METER.normal_reads["regions_columnar"] == 1 and METER.normal_reads["regions_records"] == 0
     records = _runner(indexed_bam)
-    records._normal_reader = False  # as without an index or the native library
+    records.normal_reads = NormalReads(records.cfg, None)  # as without an index or the native library
     want = records._normal_batch(target)
     assert METER.normal_reads["regions_records"] == 1
     assert (got is None) == (want is None)
@@ -210,11 +211,11 @@ def test_the_reader_is_parsed_once_and_closed_after_a_run(indexed_bam, monkeypat
     runner = _runner(indexed_bam)
     for start in range(0, 100_000, 10_000):
         runner._normal_batch(_target("chr1", start, start + 3_000))
-    assert len(opened) == 1
+    assert len(opened) == 1 and runner.normal_reads.reader is opened[0]
     monkeypatch.setattr(Runner, "_run_serial", lambda self, resume: [])
     runner.targets = {"t": _target("chr1", 0, 100)}
     runner.run()
-    assert opened[0]._fh.closed and runner._normal_reader is None
+    assert opened[0]._fh.closed and runner.normal_reads is None
 
 
 def _sorted_normal(cfg_kwargs, work):
