@@ -25,6 +25,7 @@ import numpy as np
 from breakmer_tpu_torch.call.support import DiscordantPairs
 from breakmer_tpu_torch.config import Config
 from breakmer_tpu_torch.encode import ReadBatch
+from breakmer_tpu_torch.io.bam_ingest import RowFields
 from breakmer_tpu_torch.io.sam import SamRecord
 
 
@@ -178,17 +179,40 @@ def _region_row_idx(cols: dict, rid: int, start: int, end: int) -> np.ndarray:
     return np.sort(cand[hit])  # restore file order (the full scan's order)
 
 
+def _clip_quality_passes(fields: RowFields, rows: np.ndarray, cl: np.ndarray, cr: np.ndarray,
+                         lseq: np.ndarray, width: int, cfg: Config) -> np.ndarray:
+    """The soft-clip test of ``is_sv_informative`` on ``rows`` (with their
+    clip lengths and read lengths): a clip at least ``min_clip_len`` long
+    whose bases average at least ``min_clip_qual``. The qualities come at
+    ``width``, the file's longest read, so each average divides as the
+    whole-file columns did."""
+    quals = fields.gather(rows, width, quals=True).quals
+    ml = np.maximum(cl, 1)
+    mr = np.maximum(cr, 1)
+    col_ix = np.arange(quals.shape[1])
+    left_mask = col_ix[None, :] < ml[:, None]
+    right_lo = lseq - mr
+    right_mask = (col_ix[None, :] >= right_lo[:, None]) & (col_ix[None, :] < lseq[:, None])
+    q = np.where(quals >= 0, quals, 0)
+    left_avg = (q * left_mask).sum(1) / np.maximum(left_mask.sum(1), 1)
+    right_avg = (q * right_mask).sum(1) / np.maximum(right_mask.sum(1), 1)
+    return (((cl >= cfg.min_clip_len) & (left_avg >= cfg.min_clip_qual))
+            | ((cr >= cfg.min_clip_len) & (right_avg >= cfg.min_clip_qual)))
+
+
 def extract_sv_reads_columnar(
     cols: dict,
+    fields: RowFields,
     ref_names: List[str],
     region: Tuple[str, int, int],
     cfg: Config,
 ) -> ExtractResult:
-    """Columnar twin of :func:`extract_sv_reads` over the native BAM
-    decode (breakmer_tpu_torch.native.bam_decode_columns): the whole file is
-    decoded once in C++; per-region classification is vectorized numpy
-    over the columns. Produces byte-identical ExtractResults to the
-    record path (tested), at native ingestion speed.
+    """Columnar twin of :func:`extract_sv_reads` over a sample's
+    fixed-width columns (``io/bam_ingest.py``): per-region classification
+    is vectorized numpy over the columns, and ``fields`` decodes the
+    variable-width fields of the rows that need them (the clip candidates'
+    qualities, the kept reads). Produces byte-identical ExtractResults to
+    the record path (tested).
 
     Classification priority replicates is_sv_informative exactly:
     unmapped > softclip > mate_unmapped > discordant — in particular a
@@ -224,15 +248,15 @@ def extract_sv_reads_columnar(
     covered = ~um & ~secondary
     ccl = cols["clip_left"][idx] if cfg.clip_coverage else np.zeros(len(idx), np.int64)
     ccr = cols["clip_right"][idx] if cfg.clip_coverage else np.zeros(len(idx), np.int64)
-    # interval-stabbing depth: +1/-1 boundary marks then cumsum (the
-    # per-record python slice loop was most of this function's time)
+    # interval-stabbing depth: +1/-1 boundary marks counted by bincount,
+    # then cumsum (the per-record python slice loop was most of this
+    # function's time, and np.add.at half of what was left)
     clo = np.maximum(0, p[covered] - ccl[covered] - start)
     chi = np.minimum(end - start, p[covered] + sp[covered] + ccr[covered] - start)
     ok = chi > clo
     if ok.any():
-        bound = np.zeros(len(cov) + 1, dtype=np.int32)
-        np.add.at(bound, clo[ok], 1)
-        np.add.at(bound, chi[ok], -1)
+        bound = (np.bincount(clo[ok], minlength=len(cov) + 1)
+                 - np.bincount(chi[ok], minlength=len(cov) + 1))
         cov += np.cumsum(bound[:-1], dtype=np.int32)
     considered = ~secondary & ~dup
     paired = (f & 0x1) != 0
@@ -242,35 +266,18 @@ def extract_sv_reads_columnar(
     cl = cols["clip_left"][idx]
     cr = cols["clip_right"][idx]
     lseq = cols["lseq"][idx]
-    # clip base-quality gate (avg >= min_clip_qual), vectorized — but only
-    # over rows whose clip is long enough to matter: at deep coverage the
-    # [n_records, max_seq] masked averages over EVERY candidate record
-    # were the hottest lines of the warm profile, and rows failing both
-    # length gates can never be softclip regardless of their averages
+    # clip base-quality gate (avg >= min_clip_qual), only over rows whose
+    # clip is long enough to matter: rows failing both length gates can
+    # never be softclip regardless of their averages
     softclip = np.zeros(len(idx), dtype=bool)
     cand_clip = np.nonzero(
         considered & ~um
         & ((cl >= cfg.min_clip_len) | (cr >= cfg.min_clip_len))
     )[0]
     if len(cand_clip):
-        quals = cols["quals"][idx[cand_clip]]
-        cl_c = cl[cand_clip]
-        cr_c = cr[cand_clip]
-        ls_c = lseq[cand_clip]
-        ml = np.maximum(cl_c, 1)
-        mr = np.maximum(cr_c, 1)
-        col_ix = np.arange(quals.shape[1])
-        left_mask = col_ix[None, :] < ml[:, None]
-        right_lo = ls_c - mr
-        right_mask = (col_ix[None, :] >= right_lo[:, None]) & (
-            col_ix[None, :] < ls_c[:, None]
-        )
-        q = np.where(quals >= 0, quals, 0)
-        left_avg = (q * left_mask).sum(1) / np.maximum(left_mask.sum(1), 1)
-        right_avg = (q * right_mask).sum(1) / np.maximum(right_mask.sum(1), 1)
-        softclip[cand_clip] = (
-            (cl_c >= cfg.min_clip_len) & (left_avg >= cfg.min_clip_qual)
-        ) | ((cr_c >= cfg.min_clip_len) & (right_avg >= cfg.min_clip_qual))
+        softclip[cand_clip] = _clip_quality_passes(
+            fields, idx[cand_clip], cl[cand_clip], cr[cand_clip], lseq[cand_clip],
+            cols["max_seq"], cfg)
     keep_unmapped = considered & um
     keep_mate_um = considered & ~um & ~softclip & paired & mate_unmapped
     tlen = cols["tlen"][idx]
@@ -294,35 +301,28 @@ def extract_sv_reads_columnar(
             int(npos[i]),
         )
     # pack kept reads (dedup by name+mate like the record path). The
-    # decoder's column layout IS ReadBatch's convention (codes PAD=4
-    # beyond length, quals -1 pad), so kept rows are sliced in directly —
-    # the earlier per-read decode_seq -> from_seqs re-encode round trip
-    # (identity over codes 0..4) and the per-base qual int() loop were
-    # ~half this function's time at panel scale.
+    # gathered rows come in ReadBatch's layout (codes PAD=4 beyond length,
+    # quals -1 pad), so they go in as they are where no name repeats
     names: List[str] = []
     rows: List[int] = []
-    seen = set()
-    name_rows = cols["names"]
-    for i in np.nonzero(keep)[0]:
-        if lseq[i] == 0:
-            continue
-        base = bytes(name_rows[idx[i]]).split(b"\x00")[0].decode()
-        name = base + ("/2" if f[i] & 0x80 else "/1")
-        if name in seen:
-            continue
-        seen.add(name)
-        names.append(name)
-        rows.append(i)
-    if rows:
-        sel = idx[rows]
-        lens = lseq[rows].astype(np.int32)
-        lmax = int(lens.max())
-        batch = ReadBatch(
-            codes=np.ascontiguousarray(cols["seq_codes"][sel, :lmax]),
-            lengths=lens,
-            names=names,
-            quals=np.ascontiguousarray(cols["quals"][sel, :lmax]),
-        )
+    kept = np.nonzero(keep & (lseq > 0))[0]
+    if len(kept):
+        got = fields.gather(idx[kept], int(lseq[kept].max()), codes=True, quals=True, names=True)
+        seen = set()
+        for j, (i, base) in enumerate(zip(kept.tolist(), got.names)):
+            name = base + ("/2" if f[i] & 0x80 else "/1")
+            if name in seen:
+                continue
+            seen.add(name)
+            names.append(name)
+            rows.append(j)
+        lens = lseq[kept[rows]].astype(np.int32)
+        codes, quals = got.codes, got.quals
+        if len(rows) < len(kept):
+            lmax = int(lens.max())
+            codes = np.ascontiguousarray(codes[rows, :lmax])
+            quals = np.ascontiguousarray(quals[rows, :lmax])
+        batch = ReadBatch(codes=codes, lengths=lens, names=names, quals=quals)
     else:
         batch = ReadBatch.from_seqs([])
     return ExtractResult(
@@ -353,12 +353,13 @@ def extract_all_reads(
 
 def extract_all_reads_columnar(
     cols: dict,
+    fields: RowFields,
     ref_names: List[str],
     region: Tuple[str, int, int],
 ) -> ReadBatch:
-    """Columnar twin of :func:`extract_all_reads` (native decode path);
-    byte-identical codes/lengths content on identical region streams
-    (tests/test_extract.py)."""
+    """Columnar twin of :func:`extract_all_reads` (the columns of
+    ``io/bam_ingest.py``, the pool's reads gathered through ``fields``);
+    byte-identical codes/lengths content on identical region streams."""
     chrom, start, end = region
     rid = ref_names.index(chrom) if chrom in ref_names else -1
     if cols["n"] == 0 or rid < 0:
@@ -373,13 +374,9 @@ def extract_all_reads_columnar(
     if not len(sel):
         return ReadBatch.from_seqs([])
     lens = cols["lseq"][sel].astype(np.int32)
-    lmax = int(lens.max())
-    return ReadBatch(
-        codes=np.ascontiguousarray(cols["seq_codes"][sel, :lmax]),
-        lengths=lens,
-        names=[f"r{int(i)}" for i in sel],
-        quals=np.ascontiguousarray(cols["quals"][sel, :lmax]),
-    )
+    got = fields.gather(sel, int(lens.max()), codes=True, quals=True)
+    return ReadBatch(codes=got.codes, lengths=lens, names=[f"r{int(i)}" for i in sel],
+                     quals=got.quals)
 
 
 def global_discordant_pairs(
@@ -412,11 +409,13 @@ def global_discordant_pairs(
 
 
 def global_discordant_pairs_columnar(
-    cols: dict, ref_names: List[str], cfg: Config
+    cols: dict, fields: RowFields, ref_names: List[str], cfg: Config
 ) -> DiscordantPairs:
-    """Columnar twin of :func:`global_discordant_pairs` over the native
-    BAM decode: whole-file vectorized classification, identical entries
-    (tested against the record path)."""
+    """Columnar twin of :func:`global_discordant_pairs` over a sample's
+    columns: whole-file vectorized classification, the qualities gathered
+    only for rows whose clip is long enough to pass and the names only for
+    the discordant rows; identical entries (tested against the record
+    path)."""
     disc = DiscordantPairs()
     n = cols.get("n", 0)
     if not n:
@@ -432,23 +431,11 @@ def global_discordant_pairs_columnar(
     mate_reverse = (flag & 0x20) != 0
     cl = cols["clip_left"]
     cr = cols["clip_right"]
-    lseq = cols["lseq"]
-    quals = cols["quals"]
-    ml = np.maximum(cl, 1)
-    mr = np.maximum(cr, 1)
-    col_ix = np.arange(quals.shape[1])
-    left_mask = col_ix[None, :] < ml[:, None]
-    right_lo = lseq - mr
-    right_mask = (col_ix[None, :] >= right_lo[:, None]) & (
-        col_ix[None, :] < lseq[:, None]
-    )
-    q = np.where(quals >= 0, quals, 0)
-    left_avg = (q * left_mask).sum(1) / np.maximum(left_mask.sum(1), 1)
-    right_avg = (q * right_mask).sum(1) / np.maximum(right_mask.sum(1), 1)
-    softclip = considered & ~um & (
-        ((cl >= cfg.min_clip_len) & (left_avg >= cfg.min_clip_qual))
-        | ((cr >= cfg.min_clip_len) & (right_avg >= cfg.min_clip_qual))
-    )
+    softclip = np.zeros(n, dtype=bool)
+    cand = np.flatnonzero(considered & ~um & ((cl >= cfg.min_clip_len) | (cr >= cfg.min_clip_len)))
+    if len(cand):
+        softclip[cand] = _clip_quality_passes(fields, cand, cl[cand], cr[cand],
+                                              cols["lseq"][cand], cols["max_seq"], cfg)
     keep_mate_um = considered & ~um & ~softclip & paired & mate_unmapped
     refid = cols["refid"]
     nrefid = cols["next_refid"]
@@ -463,10 +450,10 @@ def global_discordant_pairs_columnar(
     )
     pos = cols["pos"]
     npos = cols["next_pos"]
-    names = cols["names"]
+    rows = np.flatnonzero(discordant)
+    qnames = fields.gather(rows, names=True).names if len(rows) else []
     seen: set = set()
-    for i in np.nonzero(discordant)[0]:
-        qname = bytes(names[i]).split(b"\x00")[0]
+    for i, qname in zip(rows.tolist(), qnames):
         if qname in seen:
             continue
         seen.add(qname)

@@ -10,10 +10,13 @@ runner's five questions of it: ``extract``, ``all_reads``, ``depth_at``,
    inflate of a production-scale BAM must never be the default, and the
    index serves each region at a cost independent of the file's size.
    Without an index the file is preloaded all the same, with a warning.
-2. Preloaded, a ``.bam`` or ``.sam`` with the native library:
-   ``NativeReads``, the whole file decoded once into columns
-   (``ColumnReads``). Where the native decode refuses the file, its
-   records serve instead (``PreloadedReads``).
+2. Preloaded, a ``.bam`` with the BAM ingest library
+   (``io/bam_ingest.py``) or a ``.sam`` with the native library:
+   ``NativeReads``, the whole file ingested once into fixed-width columns
+   (``ColumnReads``), the variable-width fields of a row decoded when a
+   region asks for it (a ``.bam``) or with the columns (a ``.sam``). Where
+   the ingest refuses the file, its records serve instead
+   (``PreloadedReads``).
 3. Otherwise the file's records: parsed once and binned by interval
    (``PreloadedReads``), a seek a region through the index
    (``IndexedReads``, a ``.bam`` with one), or a parse of the file a region
@@ -45,8 +48,10 @@ from breakmer_tpu_torch.extract import (
     global_discordant_pairs,
     global_discordant_pairs_columnar,
 )
-from breakmer_tpu_torch.io.bam import BamIndexedReader, BamReader, find_index, read_alignments
+from breakmer_tpu_torch.io import bam_ingest
+from breakmer_tpu_torch.io.bam import BamIndexedReader, find_index, read_alignments
 from breakmer_tpu_torch.io.bam_columns import BamColumnReader, column_qnames
+from breakmer_tpu_torch.io.bam_ingest import DecodedFields, RowFields
 from breakmer_tpu_torch.io.bed import TargetRegion
 from breakmer_tpu_torch.utils.logging import get_logger
 from breakmer_tpu_torch.utils.meter import METER
@@ -79,7 +84,8 @@ def open_sample_reads(cfg: Config):
         if path.endswith(".bam") and find_index(path) is not None:
             return IndexedReads(cfg)
         return ParsedReads(cfg)
-    if path.endswith((".bam", ".sam")) and native.available():
+    if path.endswith(".bam") and bam_ingest.available() or (
+            path.endswith(".sam") and native.available()):
         return NativeReads(cfg)
     return PreloadedReads(cfg)
 
@@ -219,10 +225,13 @@ class ParsedReads(RecordReads):
 
 
 class NativeReads:
-    """The whole file decoded by the native library on the first question
-    asked of it, in its own ``bam_decode`` span. From then on every question
-    goes to ``resolved``: ``ColumnReads`` over the columns, or
-    ``PreloadedReads`` where the decode refused the file."""
+    """The whole file ingested on the first question asked of it, in its
+    own ``bam_decode`` span: a ``.bam`` by ``bam_ingest.ingest_bam`` (its
+    fixed-width columns over the inflated stream), a ``.sam`` by the native
+    library's decode of every field. From then on every question goes to
+    ``resolved``: ``ColumnReads`` over the columns, or ``PreloadedReads``
+    where the ingest refused the file. ``METER.sample_reads`` counts the
+    records and the inflated stream's MB."""
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
@@ -235,17 +244,19 @@ class NativeReads:
             t0 = time.time()
             with METER.stage("bam_decode"):
                 if is_bam:
-                    reader = BamReader(path)
-                    cols = native.bam_decode_columns(reader._data, reader._align_off)
-                    out = None if cols is None else (cols, [n for n, _ in reader.refs])
+                    out = bam_ingest.ingest_bam(path)
                 else:
                     # the per-line Python parse was ~25% of warm panel time
                     out = native.sam_decode_columns(Path(path).read_bytes())
+                    out = None if out is None else (*out, DecodedFields(out[0]))
             if out is None:
                 self.resolved = PreloadedReads(self.cfg)
             else:
-                log.info("native %s decode: %d records in %.1fs", "BAM" if is_bam else "SAM",
-                         out[0].get("n", 0), time.time() - t0)
+                cols, _, fields = out
+                METER.add_sample_reads({"records": cols["n"],
+                                        "inflated_mb": round(fields.inflated_bytes / 1e6, 3)})
+                log.info("native %s ingest: %d records in %.1fs", "BAM" if is_bam else "SAM",
+                         cols["n"], time.time() - t0)
                 self.resolved = ColumnReads(self.cfg, *out)
         return self.resolved
 
@@ -266,13 +277,14 @@ class NativeReads:
 
 
 class ColumnReads(SampleReads):
-    """The columns of the native decode (``native.bam_decode_columns``,
+    """A sample's fixed-width columns (``bam_ingest.ingest_bam``, or
     ``native.sam_decode_columns``), each region classified by vectorised
-    numpy."""
+    numpy, and the variable-width fields of the rows it keeps from
+    ``fields``."""
 
-    def __init__(self, cfg: Config, cols: dict, ref_names: list):
+    def __init__(self, cfg: Config, cols: dict, ref_names: list, fields: RowFields):
         super().__init__(cfg)
-        self.cols, self.ref_names = cols, ref_names
+        self.cols, self.ref_names, self.fields = cols, ref_names, fields
         self._cov_bins = None  # _coverage_bins()
 
     def _coverage_bins(self) -> dict:
@@ -300,11 +312,11 @@ class ColumnReads(SampleReads):
 
     def extract(self, target: TargetRegion) -> ExtractResult:
         with METER.stage("extract_clean"):
-            return extract_sv_reads_columnar(self.cols, self.ref_names,
+            return extract_sv_reads_columnar(self.cols, self.fields, self.ref_names,
                                              target.span(self.cfg.region_buffer), self.cfg)
 
     def all_reads(self, target: TargetRegion) -> ReadBatch:
-        return extract_all_reads_columnar(self.cols, self.ref_names,
+        return extract_all_reads_columnar(self.cols, self.fields, self.ref_names,
                                           target.span(self.cfg.region_buffer))
 
     def depth_at(self, chrom: str, pos: int) -> int:
@@ -319,7 +331,7 @@ class ColumnReads(SampleReads):
         return int((eend[lo:hi] > pos).sum())
 
     def _discordant_pairs(self):
-        return global_discordant_pairs_columnar(self.cols, self.ref_names, self.cfg)
+        return global_discordant_pairs_columnar(self.cols, self.fields, self.ref_names, self.cfg)
 
     def prewarm(self) -> None:
         self._coverage_bins()

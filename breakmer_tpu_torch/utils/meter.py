@@ -32,6 +32,10 @@ GERMLINE_COUNTS = ("events", "germline_by_kmers", "somatic_by_kmers", "kmers_inc
 # through the normal's index or record by record, the records the columnar
 # fetch decoded (before its overlap rule) and the reads the batches kept
 NORMAL_READS_COUNTS = ("regions_columnar", "regions_records", "records_decoded", "reads_kept")
+# METER.sample_reads's counters: the records of the sample's whole-file
+# ingest, the rows whose variable-width fields were decoded (summed over
+# the gathers that asked for them) and the inflated stream held, in MB
+SAMPLE_READS_COUNTS = ("records", "rows_gathered", "inflated_mb")
 
 
 class Meter:
@@ -57,6 +61,7 @@ class Meter:
         # by alignment and events kept
         self.germline: dict = defaultdict(int)
         self.normal_reads: dict = defaultdict(int)
+        self.sample_reads: dict = defaultdict(int)
 
     @contextmanager
     def stage(self, name: str):
@@ -78,6 +83,9 @@ class Meter:
 
     def add_normal_reads(self, counts: dict) -> None:
         self._add(self.normal_reads, counts)
+
+    def add_sample_reads(self, counts: dict) -> None:
+        self._add(self.sample_reads, counts)
 
     def _add(self, table: dict, counts: dict) -> None:
         with self._lock:
@@ -112,6 +120,8 @@ class Meter:
             out["germline"] = {k: self.germline[k] for k in GERMLINE_COUNTS}
         if self.normal_reads:
             out["normal_reads"] = {k: self.normal_reads[k] for k in NORMAL_READS_COUNTS}
+        if self.sample_reads:
+            out["sample_reads"] = {k: self.sample_reads[k] for k in SAMPLE_READS_COUNTS}
         return out
 
 

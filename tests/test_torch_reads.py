@@ -23,6 +23,7 @@ from breakmer_tpu.config import Config as JaxConfig
 from breakmer_tpu.runner import Runner as JaxRunner
 from breakmer_tpu_torch import native
 from breakmer_tpu_torch.config import Config as TorchConfig
+from breakmer_tpu_torch.io import bam_ingest
 from breakmer_tpu_torch.io.bam import write_bam
 from breakmer_tpu_torch.io.sam import parse_sam_line
 from breakmer_tpu_torch.runner import Runner as TorchRunner
@@ -69,11 +70,12 @@ def _source_config(scenario, source: str) -> dict:
 
 
 def _no_native(source: str):
-    """Both packages without their native library, for the records source."""
+    """Both packages without their native library (the port also without
+    its BAM ingest), for the records source."""
     if source != "records":
         return contextlib.nullcontext()
     stack = contextlib.ExitStack()
-    for module in (native, jax_native):
+    for module in (native, jax_native, bam_ingest):
         stack.enter_context(mock.patch.object(module, "available", lambda: False))
     return stack
 
@@ -135,6 +137,8 @@ def _served_by(runner):
 def test_every_source_gives_the_jax_run(source_run, source, path):
     got, runner = source_run("torch", source, path)
     assert _served_by(runner) is SERVED_BY[source]
+    if source == "columns":  # the BAM's fixed-width ingest, its rows gathered a region
+        assert isinstance(runner.reads.resolved.fields, bam_ingest.BamFields)
     want, _ = source_run("jax", source, path)
     assert got["svs"] == want["svs"]
     assert got["vcf"] == want["vcf"]

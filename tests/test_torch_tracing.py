@@ -9,6 +9,7 @@ import gc
 import json
 import time
 from contextlib import contextmanager
+from pathlib import Path
 
 import pytest
 
@@ -131,6 +132,30 @@ def test_each_runner_call_runs_inside_its_own_span(tmp_path, monkeypatch, normal
         checks["germline"] = spans.probe(monkeypatch, TargetPipeline, "_germline_recheck", "germline")
     Runner(Config(**cfg_kwargs)).run()
     assert {name: ok() for name, ok in checks.items()} == {name: True for name in checks}
+
+
+@pytest.mark.parametrize("source", ["sam", "bam"])
+def test_metrics_count_the_sample_reads(tmp_path, source):
+    """``metrics.json``'s ``sample_reads``: every record of the sample
+    ingested, a share of them gathered (each row once) and the inflated
+    stream's MB, where there is one."""
+    from breakmer_tpu_torch.io.bam import write_bam
+    from breakmer_tpu_torch.io.sam import parse_sam_line
+
+    cfg_kwargs = _config(tmp_path, False)
+    lines = Path(cfg_kwargs["sample_bam_file"]).read_text().splitlines()
+    records = [parse_sam_line(x) for x in lines if x and not x.startswith("@")]
+    if source == "bam":
+        refs = [(x.split("SN:")[1].split("\t")[0], int(x.split("LN:")[1]))
+                for x in lines if x.startswith("@SQ")]
+        cfg_kwargs["sample_bam_file"] = str(tmp_path / "in" / "sample.bam")
+        write_bam(cfg_kwargs["sample_bam_file"], refs, records)
+    Runner(Config(**cfg_kwargs)).run()
+    got = _metrics(cfg_kwargs)["sample_reads"]
+    assert list(got) == ["records", "rows_gathered", "inflated_mb"]
+    assert got["records"] == len(records) > 0
+    assert 0 < got["rows_gathered"] <= got["records"]
+    assert (got["inflated_mb"] > 0) == (source == "bam")
 
 
 def test_set_up_spans_survive_the_cli_order_and_a_run_meters_itself(tmp_path):
